@@ -8,6 +8,8 @@
 2. One full-width two-stage inference (the main path of chip_smoke.py) under
    torch.profiler: device time by kernel name, the total device time, and the
    wall time, whose difference is the device's idle share.
+3. The same for one full-width UCN two-stage inference (chip_smoke.py's UCN
+   path), with the defaults and with ``mean_shift.use_pallas``.
 
 Prints one JSON line at the end with the numbers. Imports no JAX.
 """
@@ -24,6 +26,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
+from unseenobjectswithmeanshift_torch.config import get_config
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import fused_uoms_cross_attention
 
 
@@ -35,6 +38,28 @@ def device_times(prof):
         if e.device_type == DeviceType.CUDA:
             out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
     return out
+
+
+def profile_frame(tag, fn, result):
+    """One warm run of fn, then one under torch.profiler: wall time, device
+    busy time, idle share and the 15 largest kernels into result[tag_*]."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per = {k: v / 1e3 for k, v in device_times(prof).items()}
+    busy = sum(per.values())
+    top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:15])
+    result.update({f"{tag}_wall_ms": wall_ms, f"{tag}_device_ms": busy,
+                   f"{tag}_idle_share": max(0.0, 1 - busy / wall_ms),
+                   f"{tag}_top_kernels_ms": top})
+    print(f"{tag}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+          f"{result[f'{tag}_idle_share']:.2f} (wall includes profiler overhead)", flush=True)
+    for k, v in top.items():
+        print(f"  {v:8.2f} ms  {k[:110]}", flush=True)
 
 
 def main():
@@ -59,24 +84,16 @@ def main():
         print(f"{name}: " + ", ".join(f"{k}={v:.3f} ms" for k, v in sorted(per.items(), key=lambda kv: -kv[1])), flush=True)
         del args
 
-    pred = chip_smoke.decisive_predictor(seed=0)
     image, xyz = chip_smoke.synthetic_rgbd(seed=0)
-    pred(image, xyz)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pred(image, xyz)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    per = {k: v / 1e3 for k, v in device_times(prof).items()}
-    busy = sum(per.values())
-    top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:15])
-    result.update(e2e_wall_ms=wall_ms, e2e_device_ms=busy,
-                  e2e_idle_share=max(0.0, 1 - busy / wall_ms), e2e_top_kernels_ms=top)
-    print(f"e2e: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
-          f"idle share {result['e2e_idle_share']:.2f} (wall includes profiler overhead)", flush=True)
-    for k, v in top.items():
-        print(f"  {v:8.2f} ms  {k[:110]}", flush=True)
+    pred = chip_smoke.decisive_predictor(seed=0)
+    profile_frame("e2e", lambda: pred(image, xyz), result)
+    del pred
+    for tag, use_pallas in (("ucn", False), ("ucn_use_pallas", True)):
+        cfg = get_config()
+        cfg.mean_shift.use_pallas = use_pallas
+        pred = chip_smoke.decisive_ucn_predictor(image, xyz, seed=0, cfg=cfg)
+        profile_frame(tag, lambda: pred(image, xyz), result)
+        del pred
     print(json.dumps(result), flush=True)
 
 

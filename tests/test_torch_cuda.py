@@ -1,5 +1,5 @@
-"""The port on a GPU: the CUDA kernel against its plain version, and the
-two-stage predictor on CUDA against the same predictor on the CPU.
+"""The port on a GPU: the CUDA kernels against their plain versions, and the
+two-stage and UCN predictors on CUDA against the same predictors on the CPU.
 
 Every test is marked ``cuda`` and skips without a CUDA device. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -17,7 +17,11 @@ from unseenobjectswithmeanshift_torch.config import get_config
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
     fused_uoms_cross_attention, fused_uoms_cross_attention_plain,
 )
-from chip_smoke import decisive_predictor
+from unseenobjectswithmeanshift_torch.ops.mean_shift import seed_hill_climbing
+from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
+    fps_seeds, fps_seeds_plain, mean_shift_seeds,
+)
+from chip_smoke import CLIMB_TOL, FPS_TOL, decisive_predictor, decisive_ucn_predictor
 
 pytestmark = pytest.mark.cuda
 
@@ -107,5 +111,148 @@ def test_two_stage_on_cuda_matches_cpu(cuda):
     gpu_r = preds[1].refine(s1)
     assert fused_uoms_cross_attention.launches == before + 6
     assert len(torch.unique(cpu_l)) >= 2
+    np.testing.assert_array_equal(s1.labels.cpu().numpy(), cpu_l.numpy())
+    np.testing.assert_array_equal(gpu_r.cpu().numpy(), cpu_r.numpy())
+
+
+def clustered(seed, B, N, k=6, d=64):
+    """[B, N, 64] unit rows around k directions, 1% copied rows, and 4
+    isolated directions at 3 positions each (exact ties the farthest-point
+    chain reaches). -> (X, groups [4, 3] sorted positions)."""
+    rng = np.random.RandomState(seed)
+    c = rng.randn(B, k, d)
+    c /= np.linalg.norm(c, axis=-1, keepdims=True)
+    X = c[np.arange(B)[:, None], rng.randint(0, k, (B, N))] + 0.06 * rng.randn(B, N, d)
+    X[:, rng.randint(0, N, N // 100)] = X[:, rng.randint(0, N, N // 100)]
+    groups = np.sort(rng.choice(N, 12, replace=False).reshape(4, 3), axis=1)
+    X[:, groups.reshape(-1)] = np.repeat(rng.randn(B, 4, d), 3, axis=1)
+    X /= np.linalg.norm(X, axis=-1, keepdims=True)
+    return X.astype(np.float32), groups
+
+
+def fps_gaps(X, idx):
+    """Per step, fp64 max of the running minimum distance (from the chain's
+    own earlier seeds) minus its value at the chosen index: [B, S-1]."""
+    X64, rows = X.double(), torch.arange(X.shape[0], device=X.device)
+    idx, mind, gaps = idx.long(), None, []
+    for i in range(idx.shape[1]):
+        if i:
+            gaps.append(mind.amax(1) - mind[rows, idx[:, i]])
+        d = 0.5 * (1 - torch.bmm(X64, X64[rows, idx[:, i]][:, :, None])[..., 0])
+        mind = d if mind is None else torch.minimum(mind, d)
+    return torch.stack(gaps, 1)
+
+
+@pytest.mark.parametrize("B,N,S", [(1, 4099, 100), (3, 1000, 37), (2, 50_177, 20)])
+def test_fps_kernel_attains_the_fp64_argmax(cuda, B, N, S):
+    # B > 1 with a first index per image; N ragged for every block size
+    X_np, groups = clustered(B + N, B, N)
+    X = torch.from_numpy(X_np).to(cuda)
+    first = torch.tensor([0, N - 1, 17][:B], dtype=torch.int32, device=cuda)
+    before = fps_seeds.launches
+    seeds, idx = fps_seeds(X, first, S)
+    torch.cuda.synchronize()
+    assert fps_seeds.launches == before + 1
+    assert idx.dtype == torch.int32 and torch.equal(idx[:, 0], first)
+    rows = torch.arange(B, device=cuda)[:, None]
+    assert torch.equal(seeds, X[rows, idx.long()])               # copied rows, bit for bit
+    assert float(fps_gaps(X, idx).max()) <= FPS_TOL
+    chosen = idx.cpu().numpy()
+    for b in range(B):                                            # copies: lowest index first
+        for g in groups:
+            hit = [list(chosen[b]).index(p) if p in chosen[b] else S for p in g]
+            assert min(hit[1:]) >= hit[0]
+
+
+def test_fps_kernel_ties_go_to_the_lowest_index(cuda):
+    N, S = 1000, 8
+    X = np.zeros((2, N, 64), np.float32)
+    X[..., 0] = 1.0
+    X[:, [300, 7, 50], 0] = -1.0          # three copies of the farthest row
+    X[:, [9, 5], :] = 0.0
+    X[:, [9, 5], 1] = 1.0                 # two copies of the next
+    X[1] = X[1, ::-1]                     # the second image mirrored
+    X = torch.from_numpy(np.ascontiguousarray(X)).to(cuda)
+    first = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    _, idx = fps_seeds(X, first, S)
+    _, want = fps_seeds_plain(X, first, S)
+    # every distance is exact (0, 0.5 or 1): after the two groups all are 0,
+    # so the argmax takes index 0
+    assert idx[0].tolist() == [0, 7, 5, 0, 0, 0, 0, 0]
+    assert idx[1].tolist() == [3, N - 301, N - 10, 0, 0, 0, 0, 0]
+    assert torch.equal(idx, want)
+
+
+@pytest.mark.parametrize("B,N,S", [(1, 4099, 100), (3, 1000, 37)])
+def test_climb_kernel_matches_plain_in_fp64(cuda, B, N, S):
+    X = torch.from_numpy(clustered(7 * B, B, N)[0]).to(cuda)
+    first = torch.tensor([5, 0, N - 1][:B], dtype=torch.int32, device=cuda)
+    seeds, idx = fps_seeds(X, first, S)
+    before = mean_shift_seeds.launches
+    Z, zidx = mean_shift_seeds(X, first, 20.0, S, 10)
+    torch.cuda.synchronize()
+    assert mean_shift_seeds.launches == before + 1
+    assert torch.equal(zidx, idx)
+    want = seed_hill_climbing(X.double(), seeds.double(), 20.0, 10)
+    # chip_smoke.py measures ~2e-6 at 307,200 keys; CLIMB_TOL is 2e-5
+    np.testing.assert_allclose(Z.double().cpu().numpy(), want.cpu().numpy(), atol=CLIMB_TOL)
+
+
+def test_mean_shift_kernels_are_deterministic(cuda):
+    X = torch.from_numpy(clustered(3, 2, 5000)[0]).to(cuda)
+    assert all(torch.equal(a, b) for a, b in zip(fps_seeds(X, 11, 50), fps_seeds(X, 11, 50)))
+    assert all(torch.equal(a, b) for a, b in zip(mean_shift_seeds(X, 11, 20.0, 50, 10),
+                                                 mean_shift_seeds(X, 11, 20.0, 50, 10)))
+
+
+def test_mean_shift_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    X = torch.from_numpy(clustered(4, 2, 300)[0]).to(cuda)
+    with pytest.raises(TypeError):
+        fps_seeds(X.double(), 0, 10)
+    with pytest.raises(ValueError):                       # width 32: the kernels take 64
+        fps_seeds(X[..., :32].contiguous(), 0, 10)
+    with pytest.raises(ValueError):
+        mean_shift_seeds(X.transpose(0, 1).contiguous().transpose(0, 1), 0, 20.0, 10, 2)
+    with pytest.raises(ValueError):                       # first index on another device
+        fps_seeds(X, torch.zeros(2, dtype=torch.int32), 10)
+    with pytest.raises(TypeError):
+        fps_seeds(X, torch.zeros(2, device=cuda), 10)
+    with pytest.raises(ValueError):                       # 4 threads a seed, 512 at most
+        mean_shift_seeds(X, 0, 20.0, 129, 2)
+
+
+def tabletop_scene(seed, h=64, w=64):
+    """Four boxes of distinct colour on a tilted plane, 5% depth holes:
+    ([1, h, w, 3] image, [1, h, w, 3] XYZ) as numpy fp32."""
+    rng = np.random.RandomState(seed)
+    ys, xs = np.mgrid[0:h, 0:w]
+    depth = 0.9 + 0.4 * ys / h
+    img = rng.rand(h, w, 3).astype(np.float32) * 0.2 - 0.1
+    colours = [[0.6, -0.6, 0.3], [-0.6, 0.4, 0.6], [0.5, 0.5, -0.6], [-0.4, -0.5, -0.5]]
+    for i, c in enumerate(colours):
+        box = (ys >= 6 + 13 * i) & (ys < 22 + 13 * i) & (xs >= 4 + 14 * i) & (xs < 18 + 14 * i)
+        depth = np.where(box, depth - 0.15 - 0.05 * i, depth)
+        img[box] += np.array(c, np.float32)
+    depth = np.where(rng.rand(h, w) < 0.05, 0.0, depth)
+    xyz = np.stack([(xs - w / 2) * depth / 60.0, (ys - h / 2) * depth / 60.0, depth], -1)
+    return img[None], xyz[None].astype(np.float32)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_ucn_on_cuda_matches_cpu(cuda, use_pallas):
+    cfg = get_config()
+    cfg.mean_shift.num_seeds, cfg.mean_shift.use_pallas = 12, use_pallas
+    cfg.test.max_instances, cfg.test.crop_size = 4, 32
+    img, xyz = map(torch.from_numpy, tabletop_scene(1))
+    preds = [decisive_ucn_predictor(img.to(device), xyz.to(device), seed=1, device=device,
+                                    cfg=copy.deepcopy(cfg), cfg_crop=copy.deepcopy(cfg))
+             for device in ("cpu", cuda)]
+    cpu_l, cpu_r = preds[0](img, xyz)
+    before = (fps_seeds.launches, mean_shift_seeds.launches)
+    s1 = preds[1].stage1(img.to(cuda), xyz.to(cuda))
+    gpu_r = preds[1].refine(s1)
+    climb = 2 if use_pallas else 0
+    assert (fps_seeds.launches, mean_shift_seeds.launches) == (before[0] + 2, before[1] + climb)
+    assert len(torch.unique(cpu_l)) >= 8 and int(s1.crops[0].present.sum()) >= 1
     np.testing.assert_array_equal(s1.labels.cpu().numpy(), cpu_l.numpy())
     np.testing.assert_array_equal(gpu_r.cpu().numpy(), cpu_r.numpy())

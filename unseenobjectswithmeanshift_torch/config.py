@@ -1,7 +1,7 @@
 """Configuration dataclasses and the two presets of the two-stage main path.
 
 An independent copy of the fields of ``unseenobjectswithmeanshift_tpu.config``
-that the two-stage MSMFormer inference reads. Defaults mirror the shipped
+that the two-stage MSMFormer and UCN inference read. Defaults mirror the shipped
 flagship configuration (ref: MSMFormer/configs/tabletop_pretrained.yaml and
 crop_tabletop_pretrained.yaml; UCN RGB-D ResNet34-8s backbone).
 """
@@ -58,12 +58,29 @@ class TestConfig:
 
 
 @dataclass
+class MeanShiftConfig:
+    """Non-learned vMF mean-shift clustering of the UCN path
+    (ref: lib/utils/mean_shift.py; knobs from lib/fcn/test_dataset.py:44-59).
+    On a CUDA tensor the seeding always runs on the farthest-point kernel
+    (``csrc/fps_seeds.cu``); ``use_pallas`` (the JAX package's name, so that
+    its configurations read across) also puts the hill climbing on the fused
+    kernel (``csrc/mean_shift_climb.cu``)."""
+
+    kappa: float = 20.0
+    num_seeds: int = 100
+    max_iters: int = 10
+    epsilon: float = 0.04             # 2 * cfg.TRAIN.EMBEDDING_ALPHA (mean_shift.py:123)
+    use_pallas: bool = False
+
+
+@dataclass
 class Config:
     name: str = "tabletop_pretrained"
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
     pixel_decoder: PixelDecoderConfig = field(default_factory=PixelDecoderConfig)
     test: TestConfig = field(default_factory=TestConfig)
+    mean_shift: MeanShiftConfig = field(default_factory=MeanShiftConfig)
 
 
 def tabletop_pretrained() -> Config:

@@ -1,9 +1,11 @@
-"""Predictor factory: preset -> runnable two-stage predictor on a device.
+"""Predictor factories: preset -> runnable two-stage predictor on a device.
 
-Port of ``unseenobjectswithmeanshift_tpu.pipeline.factory.build_two_stage_predictor``
-for the UCN-backbone presets. Weights are random from ``seed`` (through a
-``torch.Generator``), or numpy trees of the JAX package carried over by
-``weights.from_jax_variables``.
+``build_two_stage_predictor`` ports
+``unseenobjectswithmeanshift_tpu.pipeline.factory.build_two_stage_predictor``
+for the UCN-backbone MSMFormer presets; ``build_ucn_predictor`` builds the UCN
+pipeline (two SEGNETs, ``pipeline/ucn.py``). Weights are random from ``seed``
+(through a ``torch.Generator``), or numpy trees of the JAX package carried
+over by ``weights.from_jax_variables`` / ``weights.from_jax_segnet_variables``.
 """
 
 from __future__ import annotations
@@ -14,8 +16,10 @@ import torch
 
 from ..config import get_config
 from ..models.meta_arch import MSMFormer
-from ..weights import from_jax_variables, init_random
+from ..models.segnet import SEGNET
+from ..weights import from_jax_segnet_variables, from_jax_variables, init_random
 from .two_stage import TwoStagePredictor
+from .ucn import UCNPredictor
 
 CROP_PRESET_FOR = {"tabletop_pretrained": "crop_tabletop_pretrained"}
 
@@ -30,14 +34,33 @@ def build_two_stage_predictor(preset: str = "tabletop_pretrained",
     ``seed`` (the crop network from ``seed + 1``)."""
     cfg = cfg or get_config(preset)
     cfg_crop = cfg_crop or get_config(crop_preset or CROP_PRESET_FOR.get(preset, preset))
-    models = []
-    for i, (c, v) in enumerate(((cfg, variables), (cfg_crop, variables_crop))):
-        with torch.device("meta"):       # no draw from the global RNG
-            model = MSMFormer(c)
-        model = model.to_empty(device="cpu")
-        if v is None:
-            init_random(model, torch.Generator().manual_seed(seed + i))
-        else:
-            model.load_state_dict(from_jax_variables(v))
-        models.append(model.to(device).eval())
+    models = [_build(MSMFormer, c, v, from_jax_variables, seed + i, device)
+              for i, (c, v) in enumerate(((cfg, variables), (cfg_crop, variables_crop)))]
     return TwoStagePredictor(models[0], models[1], cfg, cfg_crop)
+
+
+def build_ucn_predictor(preset: str = "tabletop_pretrained",
+                        crop_preset: Optional[str] = None, seed: int = 0,
+                        variables=None, variables_crop=None, device="cuda",
+                        cfg=None, cfg_crop=None) -> UCNPredictor:
+    """Whole-image and crop SEGNETs of the UCN pipeline in eval mode on
+    ``device``, with the same conventions as build_two_stage_predictor:
+    variables/variables_crop are JAX SEGNET trees as numpy, else the weights
+    are random from ``seed`` (the crop network from ``seed + 1``)."""
+    cfg = cfg or get_config(preset)
+    cfg_crop = cfg_crop or get_config(crop_preset or CROP_PRESET_FOR.get(preset, preset))
+    nets = [_build(lambda c: SEGNET(c.backbone.num_units), c, v, from_jax_segnet_variables,
+                   seed + i, device)
+            for i, (c, v) in enumerate(((cfg, variables), (cfg_crop, variables_crop)))]
+    return UCNPredictor(nets[0], nets[1], cfg, cfg_crop)
+
+
+def _build(make, cfg, variables, convert, seed: int, device):
+    with torch.device("meta"):           # no draw from the global RNG
+        model = make(cfg)
+    model = model.to_empty(device="cpu")
+    if variables is None:
+        init_random(model, torch.Generator().manual_seed(seed))
+    else:
+        model.load_state_dict(convert(variables))
+    return model.to(device).eval()

@@ -3,7 +3,8 @@
 Port of ``unseenobjectswithmeanshift_tpu.pipeline.postprocess``:
 instance_inference (ref: pretrained_meanshiftformer_model.py:461-497),
 get_confident_instances (test_utils.py:35-52), combine_masks
-(test_utils.py:93-112) and filter_labels_depth (test_dataset.py:183-198).
+(test_utils.py:93-112), filter_labels_depth (test_dataset.py:183-198) and
+renumber_labels_by_size (the UCN path's size-ordered crop slots).
 """
 
 from __future__ import annotations
@@ -84,3 +85,20 @@ def filter_labels_depth(label, xyz_z, threshold: float, max_label: int):
     keep = frac >= threshold
     keep[0] = True
     return torch.where(keep[flat].reshape(label.shape), label, torch.zeros_like(label))
+
+
+def renumber_labels_by_size(label, max_label: int):
+    """Renumber the nonzero labels of [H, W] ``label`` (values in
+    [0, max_label)) to 1..K by descending pixel count, ties in label order;
+    0 stays 0. -> (renumbered int32 [H, W], K as an int32 tensor).
+
+    The UCN path gives the max_instances crop slots to the largest clusters
+    (ref: lib/fcn/test_dataset.py:314-321 crops every label, with no cap)."""
+    flat = label.reshape(-1).long()
+    sizes = torch.bincount(flat, minlength=max_label)
+    sizes[0] = 0                                       # background takes no rank
+    order = torch.argsort(-sizes, stable=True)
+    new_id = torch.empty_like(order)
+    new_id[order] = torch.arange(1, max_label + 1, device=label.device)
+    new_id = torch.where(sizes > 0, new_id, 0)
+    return new_id[flat].reshape(label.shape).to(torch.int32), (sizes > 0).sum().to(torch.int32)

@@ -110,7 +110,9 @@ def match_label_crop(labels_crop, stage1_mask_crop, rois, depth_crop, present,
     3. renumber kept segments from 1 in paste order; floor-nearest paste into
        each RoI box, later pastes overwriting nonzero pixels.
     labels_crop [T, S, S] int; stage1_mask_crop [T, S, S]; rois [T, 4];
-    depth_crop [T, S, S] or None; present [T] bool.
+    depth_crop [T, S, S] or None; present [T] bool. Crop label values of
+    T+2 and above belong to no segment, as the JAX package's one-hot over
+    T+2 values drops them (UCN crops carry labels up to num_seeds + 1).
     """
     T, S, _ = labels_crop.shape
     V = T + 2
@@ -122,9 +124,11 @@ def match_label_crop(labels_crop, stage1_mask_crop, rois, depth_crop, present,
     overlap = (onehot * stage1_mask_crop[:, None]).flatten(2).sum(-1)
     pct = overlap / seg_sizes.clamp_min(1.0)
     keep = (seg_sizes > 0) & (pct >= overlap_threshold) & present[:, None]     # [T, V]
+    cols = lab.clamp(max=V).flatten(1)     # column V of the lookups: no segment
 
     if depth_crop is not None:
-        kept_pixels = torch.gather(keep, 1, lab.flatten(1)).reshape(T, S, S)
+        kept_pixels = torch.gather(torch.cat([keep, keep.new_zeros(T, 1)], 1), 1,
+                                   cols).reshape(T, S, S)
         has_kept = kept_pixels.flatten(1).any(1)
         sel = torch.where(has_kept[:, None, None], kept_pixels, torch.ones_like(kept_pixels))
         dpos = sel & (depth_crop > 0)
@@ -142,7 +146,8 @@ def match_label_crop(labels_crop, stage1_mask_crop, rois, depth_crop, present,
     offsets[order] = offsets_in_order
     rank = torch.cumsum(keep.long(), dim=1)
     lookup = torch.where(keep, offsets[:, None] + rank, torch.zeros_like(rank))  # [T, V]
-    relabeled = torch.gather(lookup, 1, lab.flatten(1)).reshape(T, S, S)
+    relabeled = torch.gather(torch.cat([lookup, lookup.new_zeros(T, 1)], 1), 1,
+                             cols).reshape(T, S, S)
 
     Y = torch.arange(H, device=dev)
     X = torch.arange(W, device=dev)

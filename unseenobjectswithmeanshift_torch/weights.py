@@ -5,6 +5,8 @@
 MSMFormer: it takes the ``{"params": ..., "batch_stats": ...}`` tree as numpy
 arrays and returns a state_dict with the reference checkpoint's key names,
 which ``MSMFormer.load_state_dict`` accepts as it is.
+``from_jax_segnet_variables`` does the same for the UCN SEGNET alone, the
+inverse of ``utils.checkpoint.convert_ucn_checkpoint``.
 
 Layouts: flax conv [kh, kw, in, out] -> torch [out, in, kh, kw];
 Dense [in, out] -> Linear [out, in]; the q/k/v kernels are packed into
@@ -59,6 +61,17 @@ def _backbone(params, stats, prefix, sd):
             bn(p["downsample_bn"], s["downsample_bn"], key + "downsample.1")
     sd[prefix + "fc.weight"] = _conv(params["fc"]["kernel"])
     sd[prefix + "fc.bias"] = _t(params["fc"]["bias"])
+
+
+def from_jax_segnet_variables(variables) -> dict:
+    """{"params": {"fcn", "fcn_depth"}, "batch_stats"} numpy tree of the JAX
+    SEGNET -> state_dict of the port's ``SEGNET`` (``fcn.resnet34_8s.*``,
+    ``fcn_depth.resnet34_8s.*``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    for tower in ("fcn", "fcn_depth"):
+        _backbone(params[tower], stats[tower], f"{tower}.resnet34_8s.", sd)
+    return sd
 
 
 def from_jax_variables(variables) -> dict:
