@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--weights PATH]
 
 Phases, each followed by a ``phase=<name> seconds=<t>`` line:
 
@@ -38,24 +38,56 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             a breakdown, reads the peak memory, and checks both kernels again
             at the crop count that stage 2 ran.
 
+8. tile_skip_check  the tile-skipping variant of the cross-attention kernel
+            against the dense kernel (torch.equal) and against the plain
+            version in fp64 (TOL), at B=1/K=307,200 and B=20/K=50,176 (2
+            absent), on the check inputs (dense masks) and on concentrated
+            ones (every query attends to one disc of ~10% of the pixels; at
+            B=20 image 0 keeps guard queries, which pin all its tiles); prints
+            the share of tiles skipped and the kernel ms of the skipping,
+            dense and force_all (every tile present) variants.
+9. tile_skip_main  the full-width two-stage path with decoder.tile_skip on
+            both networks (same seed as main): 6 + 6 launches, pred_logits,
+            pred_masks and labels equal to the dense path's (torch.equal);
+            prints the skipped share per stage and layer, e2e and the
+            breakdown of main. With --weights PATH (a numpy export of one
+            MSMFormer release by scripts/export_release_npz.py), the same on
+            those weights, paired with themselves for stage 2, with the kernel
+            ms dense / skipping / force_all on each layer's own inputs.
+10. masked_attention  the two masked-attention kernels
+            (masked_hypersphere_attention, fused_masked_hypersphere_attention),
+            driven once at B=1/K=307,200 and B=20/K=50,176 (H=8, Q=100, D=32,
+            E=256, guard rows present) and held to their plain versions in
+            fp64 (TOL); kernel, plain, bound and library ms.
+
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure ends the run with a
 traceback and a non-zero exit code. Without CUDA the script fails at once.
 """
 
+import argparse
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from unseenobjectswithmeanshift_torch.config import get_config
+from unseenobjectswithmeanshift_torch.models import decoder as decoder_module
 from unseenobjectswithmeanshift_torch.models.position_encoding import position_embedding_sine
 from unseenobjectswithmeanshift_torch.ops import _build
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
-    fused_uoms_cross_attention, fused_uoms_cross_attention_plain,
+    TILE_KEYS, fused_uoms_cross_attention, fused_uoms_cross_attention_plain, tile_occupancy,
+    unmasked_keys,
+)
+from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
+    fused_masked_hypersphere_attention, fused_masked_hypersphere_attention_plain,
+    masked_hypersphere_attention, masked_hypersphere_attention_plain,
 )
 from unseenobjectswithmeanshift_torch.ops.mean_shift import connected_components, seed_hill_climbing
 from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
@@ -65,6 +97,7 @@ from unseenobjectswithmeanshift_torch.pipeline.factory import (
     build_two_stage_predictor, build_ucn_predictor,
 )
 from unseenobjectswithmeanshift_torch.utils.preprocess import compute_xyz
+from unseenobjectswithmeanshift_torch.weights import load_npz_variables
 
 # Kernel vs plain: the kernel (fp32) is held against its plain version
 # evaluated in fp64 on the same inputs. The plain version in fp32 is no
@@ -117,16 +150,32 @@ def make_inputs(B, h, w, absent=(), seed=0):
     return [a.contiguous() for a in args], present
 
 
-def work(args, present):
+def work(args, present, occ=None):
     """(fp32 operations, bytes) the function needs for these inputs: each input
-    read once and the output written once; absent images need no work."""
+    read once and the output written once; absent images need no work. With
+    occ [B, T] (tile skipping), the k/v projections and the attention run on
+    the occupied tiles only, the pos projection on the tiles some image
+    occupies, and only those columns of featT and posT are read."""
     qn, featT = args[0], args[1]
     B, K = featT.shape[0], featT.shape[2]
     n = int(present.sum())
-    flops = 2 * K * E * E + n * (4 * K * C * E + 2 * Q * K * CM + 2 * H * Q * K * D
-                                 + 2 * H * Q * K * (D + 1))
-    nbytes = sum(a.numel() * a.element_size() for a in args) + present.numel() + qn.numel() * 4
+    if occ is None:
+        occ = present.bool()[:, None].expand(B, -(-K // TILE_KEYS))
+    tile_keys = lambda o: min(K, int(o.sum()) * TILE_KEYS)
+    k_any = tile_keys(occ.any(0))
+    k_img = sum(tile_keys(occ[b]) for b in range(B))
+    flops = (2 * k_any * E * E + n * 2 * Q * K * CM
+             + k_img * (4 * C * E + 2 * H * Q * D + 2 * H * Q * (D + 1)))
+    nbytes = (sum(a.numel() * a.element_size() for a in args) + present.numel()
+              + qn.numel() * 4 - (K - k_any) * E * 4 - (B * K - k_img) * C * 4)
     return flops, nbytes
+
+
+def bound(flops, nbytes):
+    """(bound ms, what bounds it): the larger of the operations over the fp32
+    peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def check_case(name, B, h, w, absent=()):
@@ -257,7 +306,7 @@ def check_fps(name, X, first, groups):
     rows = torch.arange(B, device="cuda")
     idx_l = idx.long()
     bit_exact = torch.equal(seeds, X[rows[:, None], idx_l])
-    starts = torch.equal(idx[:, 0], first.clamp(0, N - 1))
+    starts = torch.equal(idx[:, 0], first)
     departs = (idx != pidx).any(0).nonzero().flatten().tolist()
     dep = departs[0] if departs else None
     X64 = X.double()
@@ -397,6 +446,305 @@ def msmformer_main_phase(results, t0):
     return launches
 
 
+# Tile skipping. The skipping kernel must give the dense kernel's bits, so it
+# is held to it with torch.equal, and to the plain version in fp64 with TOL.
+
+
+def concentrated_inputs(B, h, w, absent=(), guard_images=(), seed=0):
+    """make_inputs with every query's mask concentrated on one disc of ~10% of
+    the image: mask channel 1 is -4 in the disc and +4 outside, every query
+    weights it by -8 and the other channels by small integers, so every key
+    outside the disc is masked for every query (logits stay exact). The
+    guard queries 0-3 stay only in guard_images; elsewhere they take query
+    4's mask embed. -> (args, present)."""
+    args, present = make_inputs(B, h, w, absent, seed)
+    mfT, me = args[2], args[3]
+    ys = torch.arange(h, device="cuda")[:, None]
+    xs = torch.arange(w, device="cuda")[None, :]
+    r = math.sqrt(0.1 * h * w / math.pi)
+    disc = ((ys - 0.55 * h) ** 2 + (xs - 0.4 * w) ** 2 <= r * r).reshape(-1)
+    mfT[:, 1] = torch.where(disc, -4.0, 4.0)
+    guard = me[:, :4].clone()
+    me.copy_(torch.round(me * 0.1))
+    me[:, :, 1] = -8.0
+    me[:, :4] = me[:, 4:5]
+    for b in guard_images:
+        me[b, :4] = guard[b]
+    return args, present
+
+
+def skipped_share(me, mfT, present=None):
+    """Share of the (present image, 64-key tile) pairs the skipping kernel
+    skips: no query of the image has an unmasked key in the tile (a query
+    masked everywhere counts as unmasked everywhere: the guard).
+    -> (share, occupancy [B, T])."""
+    occ = tile_occupancy(unmasked_keys(me @ mfT), present)
+    n = occ.shape[0] if present is None else int(present.sum())
+    return 1.0 - float(occ.sum()) / (n * occ.shape[1]), occ
+
+
+TILE_SKIP_CASES = {   # name: (B, h, w, absent, guard images, concentrated)
+    "stage1_B1_K307200_dense_masks": (1, 480, 640, (), (), False),
+    "stage1_B1_K307200_concentrated": (1, 480, 640, (), (), True),
+    "crops_B20_K50176_dense_masks": (20, 224, 224, (3, 6), (), False),
+    "crops_B20_K50176_concentrated": (20, 224, 224, (3, 6), (0,), True),
+}
+
+
+def tile_skip_check_phase():
+    """8. the skipping kernel against the dense kernel and the plain version.
+    -> {case: results}."""
+    results = {}
+    for name, (B, h, w, absent, guards, conc) in TILE_SKIP_CASES.items():
+        args, present = (concentrated_inputs(B, h, w, absent, guards) if conc
+                         else make_inputs(B, h, w, absent))
+        call = lambda **kw: fused_uoms_cross_attention(*args, present=present, **kw)
+        dense, skip = call(), call(tile_skip=True)
+        force = call(tile_skip=True, tile_skip_force_all=True)
+        equal = torch.equal(skip, dense) and torch.equal(force, dense)
+        want64 = fused_uoms_cross_attention_plain(*[a.double() for a in args], present=present,
+                                                  tile_skip=True)
+        err = (skip.double() - want64).abs().max().item()
+        finite = bool(torch.isfinite(skip).all())
+        share, occ = skipped_share(args[3], args[2], present)
+        del dense, skip, force, want64
+        ms = time_ms(lambda: call(tile_skip=True))
+        dense_ms = time_ms(call)
+        force_ms = time_ms(lambda: call(tile_skip=True, tile_skip_force_all=True))
+        plain_ms = time_ms(lambda: fused_uoms_cross_attention_plain(
+            *args, present=present, tile_skip=True), warmup=1, reps=3)
+        flops, nbytes = work(args, present, occ)
+        bound_ms, bound_by = bound(flops, nbytes)
+        results[name] = dict(max_abs_err=err, skipped_share=share, ms=ms, dense_ms=dense_ms,
+                             force_all_ms=force_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        sync_print(f"tile_skip_check {name}: equal_to_dense={equal} max_abs_err={err:.3e} "
+                   f"(vs the plain version in fp64, tol={TOL:.0e}) finite={finite} "
+                   f"skipped_share={share:.4f} kernel_ms skip={ms:.3f} dense={dense_ms:.3f} "
+                   f"force_all={force_ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.3f} "
+                   f"({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
+        if not (equal and err <= TOL and finite):
+            raise AssertionError(f"the tile-skipping kernel disagrees at {name}")
+        if conc and share < 0.5:
+            raise AssertionError(f"concentrated masks left {share:.3f} of the tiles to skip")
+        del args, present, occ
+        torch.cuda.empty_cache()
+    return results
+
+
+@contextlib.contextmanager
+def spy_cross_attention(log):
+    """Appends (skipped share, guard queries, inputs) for every call the
+    decoder makes to the cross-attention while active; the inputs serve to
+    time the kernel on them."""
+    real = decoder_module.fused_uoms_cross_attention
+
+    def spy(*args, **kw):
+        me, mfT = args[3], args[2]
+        guards = int(((me @ mfT) < 0).all(-1).sum())
+        log.append((skipped_share(me, mfT, kw.get("present"))[0], guards, args, kw))
+        return real(*args, **kw)
+
+    decoder_module.fused_uoms_cross_attention = spy
+    try:
+        yield
+    finally:
+        decoder_module.fused_uoms_cross_attention = real
+
+
+def compare_paths(tag, dense, skip, image, xyz):
+    """The tile-skipping predictor against the dense one on the same weights:
+    launches 6 + 6, pred_logits, pred_masks and labels equal. -> (launches,
+    per-layer skipped shares, present crops)."""
+    fused_uoms_cross_attention.launches = 0
+    s1 = skip.stage1(image, xyz)
+    torch.cuda.synchronize()
+    n1 = fused_uoms_cross_attention.launches
+    refined = skip.refine(s1)
+    torch.cuda.synchronize()
+    launches = fused_uoms_cross_attention.launches
+    d1 = dense.stage1(image, xyz)
+    d_refined = dense.refine(d1)
+    n_crops = int(sum(int(c.present.sum()) for c in s1.crops))
+    labels_equal = torch.equal(s1.labels, d1.labels) and torch.equal(refined, d_refined)
+    with torch.inference_mode():
+        outs = [m(image, xyz, light=False) for m in (skip.model, dense.model)]
+        idx = torch.nonzero(s1.crops[0].present).flatten()
+        rgb, cxyz = s1.crops[0].rgb[idx], s1.crops[0].xyz[idx]
+        outs += [m(rgb, cxyz, light=False) for m in (skip.model_crop, dense.model_crop)]
+    outputs_equal = all(torch.equal(outs[i][k], outs[i + 1][k]) for i in (0, 2)
+                        for k in ("pred_logits", "pred_masks"))
+    finite = all(bool(torch.isfinite(o[k]).all()) for o in outs
+                 for k in ("pred_logits", "pred_masks"))
+    del outs
+    log = []
+    with torch.inference_mode(), spy_cross_attention(log):
+        skip.refine(skip.stage1(image, xyz))
+    shares = [entry[:2] for entry in log]
+    sync_print(f"{tag}: launches stage1={n1} stage2={launches - n1} present_crops={n_crops} "
+               f"stage1_instances={int((s1.labels.unique() >= 2).sum())} "
+               f"labels_equal_to_dense={labels_equal} outputs_equal_to_dense={outputs_equal} "
+               f"finite={finite}; skipped_share/guard queries, stage1 layers "
+               + " ".join(f"{x:.4f}/{g}" for x, g in shares[:6]) + " | stage2 layers "
+               + " ".join(f"{x:.4f}/{g}" for x, g in shares[6:]))
+    assert n1 == 6 and launches - n1 == 6, "the decoder did not launch the kernel once per layer"
+    assert labels_equal and outputs_equal and finite, f"{tag}: tile skipping changed the outputs"
+    return launches, log, n_crops
+
+
+def time_paths(tag, dense, skip, image, xyz, s1):
+    """e2e of both paths in turns (dense, skip, skip, dense) and the skipping
+    path's breakdown."""
+    e2e = {}
+    for name, pred in (("dense", dense), ("tile_skip", skip), ("tile_skip", skip),
+                       ("dense", dense)):
+        e2e.setdefault(name, []).extend(median_ms(lambda: pred(image, xyz))[1])
+    with torch.inference_mode():
+        parts = {
+            "stage1_backbone": lambda: skip.model.pretrained_backbone(image, xyz),
+            "stage1_network": lambda: skip.model(image, xyz, light=True),
+            "stage1_total": lambda: skip.stage1(image, xyz),
+            "refine_total": lambda: skip.refine(s1),
+        }
+        split = {k: median_ms(f)[0] for k, f in parts.items()}
+    med = {k: statistics.median(v) for k, v in e2e.items()}
+    sync_print(f"{tag}: e2e_ms median of 6 tile_skip={med['tile_skip']:.1f} "
+               f"dense={med['dense']:.1f} (runs tile_skip "
+               + ", ".join(f"{t:.1f}" for t in e2e["tile_skip"]) + "; dense "
+               + ", ".join(f"{t:.1f}" for t in e2e["dense"])
+               + "), B=1 480x640 fp32; tile_skip breakdown median ms "
+               + " ".join(f"{k}={v:.1f}" for k, v in split.items()))
+    return med
+
+
+def tile_skip_main_phase(results, weights=None):
+    """9. the two-stage path with decoder.tile_skip, against the dense path on
+    the same weights. -> launches of the tile-skipping path."""
+    image, xyz = synthetic_rgbd(seed=0)
+    dense, skip = decisive_predictor(seed=0), decisive_predictor(seed=0, tile_skip=True)
+    launches, log, n_crops = compare_paths("tile_skip_main decisive", dense, skip, image, xyz)
+    assert n_crops >= 1, "stage 1 gave no crop, so stage 2 did not run"
+    med = time_paths("tile_skip_main decisive", dense, skip, image, xyz, skip.stage1(image, xyz))
+    results["decisive"] = dict(skipped_share=[e[0] for e in log],
+                               guard_queries=[e[1] for e in log], e2e_ms=med,
+                               present_crops=n_crops)
+    del dense, skip, log
+    torch.cuda.empty_cache()
+    if weights is None:
+        return launches
+    variables = load_npz_variables(weights)
+    if "scene" in variables:      # a held-out rendered scene stored by the export
+        image, xyz = (torch.from_numpy(variables["scene"][k]).cuda() for k in ("image", "xyz"))
+    preds = [build_two_stage_predictor(variables=variables, variables_crop=variables,
+                                       tile_skip=ts) for ts in (False, True)]
+    tag = "tile_skip_main trained"
+    sync_print(f"{tag}: weights {weights} (stage 2 runs the same weights), input "
+               + ("the export's rendered scene" if "scene" in variables else "synthetic_rgbd"))
+    del variables
+    _, log, n_crops = compare_paths(tag, *preds, image, xyz)
+    med = time_paths(tag, *preds, image, xyz, preds[1].stage1(image, xyz))
+    layers = []
+    for i, (share, guards, args, kw) in enumerate(log):
+        kw = {k: v for k, v in kw.items() if not k.startswith("tile_skip")}
+        call = lambda **extra: fused_uoms_cross_attention(*args, **kw, **extra)
+        t = dict(skipped_share=share, guard_queries=guards, dense_ms=time_ms(call),
+                 ms=time_ms(lambda: call(tile_skip=True)),
+                 force_all_ms=time_ms(lambda: call(tile_skip=True, tile_skip_force_all=True)),
+                 B=args[0].shape[0])
+        layers.append(t)
+        sync_print(f"{tag}: stage{1 + i // 6} layer {i % 6} B={t['B']} "
+                   f"skipped_share={share:.4f} guard_queries={guards} "
+                   f"kernel_ms skip={t['ms']:.3f} "
+                   f"dense={t['dense_ms']:.3f} force_all={t['force_all_ms']:.3f}")
+    results["trained"] = dict(weights=weights, layers=layers, e2e_ms=med, present_crops=n_crops)
+    return launches
+
+
+def attention_inputs(B, K, seed=0):
+    """Seeded inputs of both masked-attention kernels on the device: qn
+    normalized, raw k and v, mask logits with rows 0-3 masked everywhere (the
+    guard), and base / pos / projections at E = 256 (pos the sine encoding of
+    the image)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    qn = rn(B, H, Q, D)
+    qn = qn / qn.norm(dim=-1, keepdim=True)
+    logits = rn(B, Q, K)
+    logits[:, :4] = -1.0 - logits[:, :4].abs()
+    h = 480 if K == 480 * 640 else 224
+    pos = position_embedding_sine(h, K // h, E // 2).reshape(K, E).contiguous()
+    proj = [rn(B, K, E) * 0.3, pos, rn(E, E) * 0.06, rn(E) * 0.1, rn(E, E) * 0.06,
+            rn(E) * 0.1]
+    return qn, rn(B, H, K, D), rn(B, H, K, D), logits, proj
+
+
+def masked_attention_phase():
+    """10. both masked-attention kernels: driven once per shape (counted),
+    held to their plain versions in fp64, timed. -> ({kernel: launches},
+    {kernel: {shape: results}})."""
+    cases = {"stage1_B1_K307200": (1, 480 * 640), "crops_B20_K50176": (20, 224 * 224)}
+    kernels = (masked_hypersphere_attention, fused_masked_hypersphere_attention)
+    launches = {fn.__name__: 0 for fn in kernels}
+    results = {fn.__name__: {} for fn in kernels}
+    for name, (B, K) in cases.items():
+        qn, k, v, logits, proj = attention_inputs(B, K)
+        row5 = lambda: masked_hypersphere_attention(qn, k, v, logits, k_normalized=False)
+        row6 = lambda: fused_masked_hypersphere_attention(qn, *proj, logits)
+        for fn in kernels:
+            fn.launches = 0
+        got5, got6 = row5(), row6()
+        torch.cuda.synchronize()
+        for fn in kernels:     # the driving calls; the timing below does not count
+            launches[fn.__name__] += fn.launches
+        d = lambda t: t.double()
+        want5 = masked_hypersphere_attention_plain(d(qn), d(k), d(v), d(logits))
+        want6 = fused_masked_hypersphere_attention_plain(d(qn), *map(d, proj), d(logits))
+        guard_rows = int((logits < 0).all(-1).sum())
+        # the library yardstick of row 5: one SDPA call on normalized k with the
+        # guard-corrected bias, both built outside the timed call
+        kn = k / torch.sqrt((k * k).sum(-1, keepdim=True) + 1e-24)
+        masked = logits < 0
+        bias = torch.zeros_like(logits).masked_fill(masked & ~masked.all(-1, keepdim=True),
+                                                    float("-inf"))[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(qn, kn, v, attn_mask=bias, scale=30.0)
+        lib_err = (sdpa().double() - want5).abs().max().item()
+        for kernel, got, want, fn, plain, flops, nbytes in (
+                ("masked_hypersphere_attention", got5, want5, row5,
+                 lambda: masked_hypersphere_attention_plain(qn, k, v, logits),
+                 B * (2 * H * Q * K * D + 2 * H * Q * K * (D + 1)),
+                 4 * (qn.numel() * 2 + k.numel() + v.numel() + logits.numel())),
+                ("fused_masked_hypersphere_attention", got6, want6, row6,
+                 lambda: fused_masked_hypersphere_attention_plain(qn, *proj, logits),
+                 B * (2 * H * Q * K * D + 2 * H * Q * K * (D + 1) + 2 * 2 * K * E * E),
+                 4 * (qn.numel() * 2 + logits.numel() + sum(t.numel() for t in proj)))):
+            err = (got.double() - want).abs().max().item()
+            finite = bool(torch.isfinite(got).all())
+            ms = time_ms(fn)
+            plain_ms = time_ms(plain, warmup=1, reps=3)
+            library_ms = time_ms(sdpa) if kernel == "masked_hypersphere_attention" else None
+            bound_ms, bound_by = bound(flops, nbytes)
+            results[kernel][name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by,
+                                         library_ms=library_ms)
+            sync_print(f"masked_attention {kernel} {name}: max_abs_err={err:.3e} (vs the plain "
+                       f"version in fp64, tol={TOL:.0e}) finite={finite} guard_rows={guard_rows} "
+                       f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.3f} "
+                       f"({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB) "
+                       f"achieved={flops / ms / 1e9:.2f} TFLOP/s"
+                       + (f" library_ms={library_ms:.3f} (F.scaled_dot_product_attention on "
+                          f"k normalized and the guard-corrected bias, both built outside the "
+                          f"timed call; {lib_err:.2e} from fp64)" if library_ms is not None
+                          else " library_ms=null (no one PyTorch call computes it)"))
+            if not (err <= TOL and finite and guard_rows > 0):
+                raise AssertionError(f"{kernel} disagrees with its plain version at {name}")
+        del qn, k, v, logits, proj, got5, got6, want5, want6, kn, bias
+        torch.cuda.empty_cache()
+    for kernel, n in launches.items():
+        if n != len(cases):
+            raise AssertionError(f"{kernel} launched {n} times while driven {len(cases)} times")
+    return launches, results
+
+
 def median_ms(fn, reps=3):
     """Host-clock median of `reps` synchronized runs after one warm-up."""
     fn()
@@ -530,7 +878,11 @@ def ucn_main_phase(results):
     return launches
 
 
-def main():
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    p.add_argument("--weights", help="a .npz export of one MSMFormer release "
+                   "(scripts/export_release_npz.py): tile_skip_main runs on it too")
+    opts = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -603,6 +955,19 @@ def main():
     ucn_launches = ucn_main_phase(ucn_results)
     phase_done("ucn_main", t0)
 
+    # 8-10. tile skipping and the masked-attention kernels
+    t0 = time.perf_counter()
+    skip_results = tile_skip_check_phase()
+    phase_done("tile_skip_check", t0)
+    t0 = time.perf_counter()
+    skip_main = {}
+    skip_launches = tile_skip_main_phase(skip_main, opts.weights)
+    torch.cuda.empty_cache()
+    phase_done("tile_skip_main", t0)
+    t0 = time.perf_counter()
+    mattn_launches, mattn_results = masked_attention_phase()
+    phase_done("masked_attention", t0)
+
     s1r = results["stage1_B1_K307200"]
     kernels = [{
         "name": "fused_uoms_cross_attention",
@@ -633,6 +998,34 @@ def main():
             "library_ms": None,
             "shapes": {k: {**{e: v for e, v in r.items() if not isinstance(v, dict)},
                            **r.get(name, {})} for k, r in ucn_results.items()},
+        })
+    s1k = skip_results["stage1_B1_K307200_concentrated"]
+    kernels.append({
+        "name": "fused_uoms_cross_attention(tile_skip=True)",
+        "route": "cuda",
+        "source": "unseenobjectswithmeanshift_torch/csrc/fused_cross_attention.cu",
+        "replaces": "unseenobjectswithmeanshift_tpu/ops/fused_cross_attention.py:483",
+        "launches": skip_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in skip_results.values()),
+        **{k: s1k[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shapes": skip_results,
+        "main_path": skip_main,
+    })
+    for name, line in (("masked_hypersphere_attention", 90),
+                       ("fused_masked_hypersphere_attention", 245)):
+        r = mattn_results[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "unseenobjectswithmeanshift_torch/csrc/masked_attention.cu",
+            "replaces": f"unseenobjectswithmeanshift_tpu/ops/pallas_attention.py:{line}",
+            "launches": mattn_launches[name],
+            "launches_of": "driven directly by the masked_attention phase: no model calls it",
+            "max_abs_err": max(x["max_abs_err"] for x in r.values()),
+            **{k: r["stage1_B1_K307200"][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shapes": r,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

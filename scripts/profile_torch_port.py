@@ -1,6 +1,6 @@
 """Device-time breakdown of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python scripts/profile_torch_port.py
+    python scripts/profile_torch_port.py [--weights PATH]
 
 1. The fused cross-attention alone at the stage-1 shape (B=1, K=480*640) and
    at the crop shape (B=8 with 2 absent, K=224*224), under torch.profiler: the
@@ -10,10 +10,16 @@
    wall time, whose difference is the device's idle share.
 3. The same for one full-width UCN two-stage inference (chip_smoke.py's UCN
    path), with the defaults and with ``mean_shift.use_pallas``.
+4. With --weights (a .npz export of one MSMFormer release,
+   scripts/export_release_npz.py), the MSMFormer frame of 2. on those weights
+   (paired with themselves for stage 2; on the export's rendered scene if it
+   holds one), dense and with decoder.tile_skip: the cross-attention's
+   passes of each, side by side.
 
 Prints one JSON line at the end with the numbers. Imports no JAX.
 """
 
+import argparse
 import json
 import os
 import sys
@@ -28,6 +34,8 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke
 from unseenobjectswithmeanshift_torch.config import get_config
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import fused_uoms_cross_attention
+from unseenobjectswithmeanshift_torch.pipeline.factory import build_two_stage_predictor
+from unseenobjectswithmeanshift_torch.weights import load_npz_variables
 
 
 def device_times(prof):
@@ -62,7 +70,10 @@ def profile_frame(tag, fn, result):
         print(f"  {v:8.2f} ms  {k[:110]}", flush=True)
 
 
-def main():
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Device-time breakdown of the port.")
+    p.add_argument("--weights", help="a .npz export of one MSMFormer release")
+    opts = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -94,6 +105,15 @@ def main():
         pred = chip_smoke.decisive_ucn_predictor(image, xyz, seed=0, cfg=cfg)
         profile_frame(tag, lambda: pred(image, xyz), result)
         del pred
+    if opts.weights:
+        variables = load_npz_variables(opts.weights)
+        if "scene" in variables:
+            image, xyz = (torch.from_numpy(variables["scene"][k]).cuda() for k in ("image", "xyz"))
+        for tag, tile_skip in (("trained_dense", False), ("trained_tile_skip", True)):
+            pred = build_two_stage_predictor(variables=variables, variables_crop=variables,
+                                             tile_skip=tile_skip)
+            profile_frame(tag, lambda: pred(image, xyz), result)
+            del pred
     print(json.dumps(result), flush=True)
 
 

@@ -15,11 +15,16 @@ import torch
 
 from unseenobjectswithmeanshift_torch.config import get_config
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
-    fused_uoms_cross_attention, fused_uoms_cross_attention_plain,
+    fused_uoms_cross_attention, fused_uoms_cross_attention_plain, tile_occupancy,
+    unmasked_keys,
 )
 from unseenobjectswithmeanshift_torch.ops.mean_shift import seed_hill_climbing
 from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
     fps_seeds, fps_seeds_plain, mean_shift_seeds,
+)
+from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
+    fused_masked_hypersphere_attention, fused_masked_hypersphere_attention_plain,
+    masked_hypersphere_attention, masked_hypersphere_attention_plain,
 )
 from chip_smoke import CLIMB_TOL, FPS_TOL, decisive_predictor, decisive_ucn_predictor
 
@@ -256,3 +261,145 @@ def test_ucn_on_cuda_matches_cpu(cuda, use_pallas):
     assert len(torch.unique(cpu_l)) >= 8 and int(s1.crops[0].present.sum()) >= 1
     np.testing.assert_array_equal(s1.labels.cpu().numpy(), cpu_l.numpy())
     np.testing.assert_array_equal(gpu_r.cpu().numpy(), cpu_r.numpy())
+
+
+def concentrate(args, window, guard_images=()):
+    """Only keys in [window) unmasked, for every query; the images in
+    guard_images keep their guard queries 0 and 3 (masked everywhere, so that
+    image keeps every tile). Logits stay exact: integers times 1/4."""
+    mf, me = args[2].copy(), args[3].copy()
+    guard = me[:, [0, 3]].copy()
+    mf[:, 1] = 4.0
+    mf[:, 1, window[0]:window[1]] = -4.0
+    me = np.round(me * 0.1)
+    me[:, :, 1] = -8.0
+    for b in guard_images:
+        me[b, [0, 3]] = guard[b]
+    return args[:2] + [mf, me] + args[4:]
+
+
+@pytest.mark.parametrize("B,Q,K,present,window,guard_images", [
+    (1, 100, 4096, None, None, ()), (3, 100, 5000, [1, 0, 1], (1000, 1300), (0,)),
+    (2, 100, 4097, [0, 1], (4000, 4097), ()), (4, 16, 3000, [1, 1, 0, 1], (0, 70), (3,))])
+def test_tile_skip_kernel_equals_dense_kernel(cuda, B, Q, K, present, window, guard_images):
+    args = make_inputs(5, B, Q, K)
+    if window is not None:
+        args = concentrate(args, window, guard_images)
+    args = [torch.from_numpy(a).to(cuda) for a in args]
+    p = None if present is None else torch.tensor(present, dtype=torch.bool, device=cuda)
+    dense = fused_uoms_cross_attention(*args, present=p)
+    before = fused_uoms_cross_attention.launches
+    skip = fused_uoms_cross_attention(*args, present=p, tile_skip=True)
+    force = fused_uoms_cross_attention(*args, present=p, tile_skip=True, tile_skip_force_all=True)
+    torch.cuda.synchronize()
+    assert fused_uoms_cross_attention.launches == before + 2
+    assert torch.equal(skip, dense) and torch.equal(force, dense)
+    want = fused_uoms_cross_attention_plain(*[a.double() for a in args], present=p,
+                                            tile_skip=True)
+    np.testing.assert_allclose(skip.double().cpu().numpy(), want.cpu().numpy(), atol=1e-5)
+    if window is not None:              # the inputs do leave tiles to skip
+        occ = tile_occupancy(unmasked_keys(args[3] @ args[2]), p)
+        kept = [b for b in range(B) if (present is None or present[b]) and b not in guard_images]
+        assert kept and not occ[kept].all()
+
+
+def mha_inputs(seed, B, Q, K, H=8, D=32, guard=True):
+    rng = np.random.RandomState(seed)
+    qn = rng.randn(B, H, Q, D).astype(np.float32)
+    qn /= np.linalg.norm(qn, axis=-1, keepdims=True)
+    logits = rng.randn(B, Q, K).astype(np.float32)
+    if guard:
+        logits[:, [0, 3]] = -1.0 - np.abs(logits[:, [0, 3]])
+    return qn, rng.randn(B, H, K, D).astype(np.float32), \
+        rng.randn(B, H, K, D).astype(np.float32), logits
+
+
+@pytest.mark.parametrize("B,Q,K,kv_transposed", [(1, 100, 4096, False), (3, 17, 1000, True),
+                                                 (2, 128, 777, False), (2, 100, 70, True)])
+def test_masked_attention_kernel_matches_plain(cuda, B, Q, K, kv_transposed):
+    qn, k, v, logits = mha_inputs(B + K, B, Q, K)
+    if kv_transposed:
+        k, v = k.transpose(0, 1, 3, 2).copy(), v.transpose(0, 1, 3, 2).copy()
+    args = [torch.from_numpy(a).to(cuda) for a in (qn, k, v, logits)]
+    before = masked_hypersphere_attention.launches
+    got = masked_hypersphere_attention(*args, kv_transposed=kv_transposed, k_normalized=False)
+    torch.cuda.synchronize()
+    assert masked_hypersphere_attention.launches == before + 1
+    want = masked_hypersphere_attention_plain(*[a.double() for a in args],
+                                              kv_transposed=kv_transposed)
+    # chip_smoke.py holds the kernel at 2e-5 from fp64 at K = 307,200
+    np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("B,Q,K,E", [(1, 100, 4096, 256), (2, 16, 777, 96)])
+def test_fused_masked_attention_kernel_matches_plain(cuda, B, Q, K, E):
+    rng = np.random.RandomState(K)
+    H, D = 8, 32
+    qn, _, _, logits = mha_inputs(K, B, Q, K)
+    f32 = np.float32
+    rest = [rng.randn(B, K, E).astype(f32) * 0.3, rng.randn(K, E).astype(f32) * 0.3,
+            rng.randn(E, H * D).astype(f32) * 0.1, rng.randn(H * D).astype(f32) * 0.1,
+            rng.randn(E, H * D).astype(f32) * 0.1, rng.randn(H * D).astype(f32) * 0.1]
+    args = [torch.from_numpy(a).to(cuda) for a in [qn, *rest, logits]]
+    before = fused_masked_hypersphere_attention.launches
+    got = fused_masked_hypersphere_attention(*args)
+    torch.cuda.synchronize()
+    assert fused_masked_hypersphere_attention.launches == before + 1
+    want = fused_masked_hypersphere_attention_plain(*[a.double() for a in args])
+    np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+
+
+def test_masked_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    qn, k, v, logits = [torch.from_numpy(a).to(cuda) for a in mha_inputs(0, 1, 8, 64)]
+    with pytest.raises(ValueError):                       # head width 16
+        masked_hypersphere_attention(qn.reshape(1, 16, 8, 16).contiguous(),
+                                     k.reshape(1, 16, 64, 16).contiguous(),
+                                     v.reshape(1, 16, 64, 16).contiguous(), logits)
+    with pytest.raises(ValueError):                       # Q = 129 > 128
+        masked_hypersphere_attention(*[torch.from_numpy(a).to(cuda)
+                                       for a in mha_inputs(0, 1, 129, 64)])
+    with pytest.raises(TypeError):
+        masked_hypersphere_attention(qn, k.double(), v, logits)
+    with pytest.raises(ValueError):                       # layout the flag does not say
+        masked_hypersphere_attention(qn, k, v, logits, kv_transposed=True)
+    with pytest.raises(ValueError):
+        fused_masked_hypersphere_attention(qn, torch.zeros(1, 64, 256, device=cuda),
+                                           torch.zeros(64, 256, device=cuda),
+                                           torch.zeros(256, 128, device=cuda),
+                                           torch.zeros(256, device=cuda),
+                                           torch.zeros(256, 256, device=cuda),
+                                           torch.zeros(256, device=cuda), logits)
+
+
+@pytest.mark.parametrize("first", [-1, -2, 1000, 1020, -1020])
+def test_fps_kernel_first_index_outside_the_rows(cuda, first):
+    # jnp indexing of X[first]: -N <= i < 0 wraps, beyond the ends clamps;
+    # indices[:, 0] is first as given
+    X = torch.from_numpy(clustered(9, 2, 1000)[0]).to(cuda)
+    seeds, idx = fps_seeds(X, first, 12)
+    want_s, want_i = fps_seeds_plain(X, first, 12)
+    assert torch.equal(idx, want_i) and torch.equal(seeds, want_s)
+    assert idx[:, 0].tolist() == [first, first]
+    row = {-1: 999, -2: 998, 1000: 999, 1020: 999, -1020: 0}[first]
+    assert torch.equal(seeds[:, 0], X[:, row])
+
+
+def test_two_stage_tile_skip_on_cuda_matches_dense(cuda):
+    cfg = get_config()
+    d = cfg.decoder
+    d.hidden_dim, d.nheads, d.num_queries, d.dec_layers = 128, 4, 16, 3
+    d.dim_feedforward, d.mask_dim = 128, 48
+    cfg.pixel_decoder.mask_dim = 48
+    cfg.test.max_instances, cfg.test.crop_size = 5, 32
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.rand(1, 64, 64, 3).astype(np.float32) - 0.4).to(cuda)
+    xyz = torch.from_numpy((rng.rand(1, 64, 64, 3) * 1.5).astype(np.float32)).to(cuda)
+    out = []
+    for tile_skip in (False, True):
+        pred = decisive_predictor(seed=4, device=cuda, cfg=copy.deepcopy(cfg),
+                                  cfg_crop=copy.deepcopy(cfg), tile_skip=tile_skip)
+        with torch.inference_mode():
+            net = pred.model(img, xyz, light=True)
+        out.append((net["pred_logits"], net["mask_embed"], *pred(img, xyz)))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

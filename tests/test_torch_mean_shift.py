@@ -152,3 +152,30 @@ def test_smart_init_routes_match_pallas_interpret(route):
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_array_equal(got_l.numpy(), np.asarray(want_l))
     assert got_l.shape == (2, 777) and got_l.dtype == torch.int32
+
+
+F1_N = 50
+
+
+@pytest.mark.parametrize("first", [-1, -2, F1_N, F1_N + 20, -F1_N - 20])
+@pytest.mark.parametrize("fn", ["select_smart_seeds", "mean_shift_smart_init", "fps_seeds"])
+def test_first_seed_idx_outside_the_rows_matches_jax(fn, first):
+    # the JAX package reads X[first] with jnp indexing (-N <= i < 0 wraps,
+    # beyond the ends clamps) and returns first as given in indices[0]
+    X = np.random.RandomState(3).randn(F1_N, 8).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    if fn == "mean_shift_smart_init":
+        kw = dict(kappa=20.0, num_seeds=6, max_iters=3, epsilon=0.04, first_seed_idx=first)
+        want_l, want_i = jms.mean_shift_smart_init(jnp.asarray(X), **kw)
+        got_l, got_i = ms.mean_shift_smart_init(torch.from_numpy(X), **kw)
+        np.testing.assert_array_equal(got_l.numpy(), np.asarray(want_l))
+    else:
+        want_s, want_i = jms.select_smart_seeds(jnp.asarray(X), 6, first)
+        if fn == "fps_seeds":
+            got_s, got_i = msk.fps_seeds(torch.from_numpy(X)[None], first, 6)
+            got_s, got_i = got_s[0], got_i[0]
+        else:
+            got_s, got_i = ms.select_smart_seeds(torch.from_numpy(X), 6, first)
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))   # copied rows
+    assert got_i.dtype == torch.int32 and int(got_i[0]) == first
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))

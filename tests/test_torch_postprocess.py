@@ -106,3 +106,25 @@ def test_match_label_crop_matches_jax(rng, with_depth):
     got = rf.match_label_crop(*[None if a is None else t(a) for a in args], (H, W)).numpy()
     np.testing.assert_array_equal(got, want)
     assert got.max() >= 2
+
+
+@pytest.mark.parametrize("fn", ["filter_labels_depth", "renumber_labels_by_size"])
+def test_labels_outside_max_label_match_jax(rng, fn):
+    # the JAX package's one-hot over max_label values gives labels >= max_label
+    # (and below 0) no bin: they count nowhere and become 0
+    label = rng.randint(0, 6, size=(20, 24)).astype(np.int32)
+    label[:4, :5] = 6
+    label[10:12, :] = 9
+    label[15, 3:9] = -1
+    z = rng.rand(20, 24).astype(np.float32)
+    z[label == 2] = 0.0
+    if fn == "filter_labels_depth":
+        want = np.asarray(jpp.filter_labels_depth(jnp.asarray(label), jnp.asarray(z), 0.5, 6))
+        got = pp.filter_labels_depth(t(label), t(z), 0.5, 6).numpy()
+    else:
+        want, want_k = map(np.asarray, jpp.renumber_labels_by_size(jnp.asarray(label), 6))
+        got, got_k = pp.renumber_labels_by_size(t(label), 6)
+        got = got.numpy()
+        assert int(got_k) == int(want_k) == 5
+    np.testing.assert_array_equal(got, want)
+    assert not np.isin(got, [6, 9, -1]).any() and (got > 0).any()

@@ -32,6 +32,12 @@ class DecoderConfig:
     conv_dim: int = 64                # channels of the backbone feature map
     num_classes: int = 2
     kappa: float = 30.0
+    # skip the 64-key tiles of the cross-attention where no query of an image
+    # has an unmasked key (exact: same output bits); pays off only where the
+    # masks concentrate, as with trained weights
+    tile_skip: bool = False
+    # control: the tile-skipping kernel with every tile present
+    tile_skip_force_all: bool = False
 
 
 @dataclass

@@ -95,7 +95,9 @@ __global__ void __launch_bounds__(THREADS) fps_step_kernel(
 
   int idx;
   if (step == 0) {
-    idx = min(max(first[b], 0), N - 1);
+    // jnp indexing of X[first]: -N <= f < 0 wraps, then clamp to [0, N)
+    const int f = first[b];
+    idx = f < 0 ? max(f + N, 0) : min(f, N - 1);
   } else {
     const size_t base = ((size_t)((step - 1) & 1) * B + b) * nblk;
     float v = -FLT_MAX;
@@ -112,7 +114,7 @@ __global__ void __launch_bounds__(THREADS) fps_step_kernel(
     seed[tid] = x;
     if (blk == 0) seeds[((size_t)b * S + step) * D + tid] = x;
   }
-  if (blk == 0 && tid == 0) indices[(size_t)b * S + step] = idx;
+  if (blk == 0 && tid == 0) indices[(size_t)b * S + step] = step == 0 ? first[b] : idx;
   if (step == S - 1) return;   // the last seed needs no distance update
   __syncthreads();
 

@@ -37,6 +37,24 @@
 //                     masked p.[v|1] accumulation in registers
 //   xattn_reduce      sum the splits, divide by the denominator column
 //
+// Tile skipping (decoder.tile_skip; replaces the JAX package's
+// fused_uoms_cross_attention(tile_plan=...), _kernel_skip :282 and
+// pallas_call :483). A block holds every query of its image, so once the mask
+// words of a tile are in shared memory (with the count-0 rule applied), "no
+// query of this image has a bit in this tile" is one __syncthreads_or. Such a
+// tile adds exact zeros to every accumulator of the dense kernel, so the
+// skipping variant (MODE 1) loads its mask words first and goes on to the next
+// tile without touching features, P or k/v. The splits and the order of the
+// remaining tiles are the dense kernel's, so the output equals the dense
+// kernel's bit for bit. No bound on me.mf is needed: the bits are exact.
+// A query whose mask is empty (the guard) attends to every key, so one such
+// query keeps every tile of its image. The trained masks measured so far have
+// such queries in every layer, so they skip nothing; a per-query skip of the
+// attention loop (guard queries' warps first) saved no time on the H100, since
+// a block still waits at every tile for the warps that attend (PERF.md §6).
+// MODE 2 runs the same code with every tile counted as present (the
+// tile_skip_force_all control, which measures the cost of the test).
+//
 // Bound. Per layer and 480x640 image (K = 307,200, H = 8, Q = 100, D = 32,
 // C = 64, Cm = E = 256), fp32 operations:
 //   pos projection 2 K E^2 = 40.3 G, k/v projection 2*2 K C E = 20.1 G,
@@ -165,8 +183,25 @@ __global__ void __launch_bounds__(256) mask_kernel(
   }
 }
 
+// Mask word w of query q at keys k0 + 32w .. k0 + 32w + 31 of the tile:
+// all ones for a query with no unmasked key (the guard), zero past K.
+__device__ __forceinline__ uint32_t tile_mask_word(const uint32_t* __restrict__ bits,
+                                                   const int* __restrict__ cnt, int b,
+                                                   int Q, int qq, int K, int words,
+                                                   int k0, int w) {
+  const int key0 = k0 + w * 32;
+  const int nvalid = min(max(K - key0, 0), 32);
+  const uint32_t valid = nvalid == 32 ? 0xffffffffu : ((1u << nvalid) - 1u);
+  const int widx = key0 / 32;
+  const uint32_t word = (widx < words) ? bits[((size_t)b * Q + qq) * words + widx] : 0u;
+  return (cnt[b * Q + qq] == 0 ? 0xffffffffu : word) & valid;
+}
+
 // One block per (key split, head group, image). Thread = (head hl, query q).
 // partial layout [B][nsplit][H][Q][D+1]; column D is the denominator.
+// MODE 0: dense; 1: skip tiles where no query of the image has a mask bit;
+// 2: the skipping code with every tile present (control).
+template <int MODE>
 __global__ void __launch_bounds__(MAX_PAIRS) xattn_partial_kernel(
     const float* __restrict__ qn, const float* __restrict__ featT,
     const float* __restrict__ P, const float* __restrict__ awk,
@@ -211,6 +246,14 @@ __global__ void __launch_bounds__(MAX_PAIRS) xattn_partial_kernel(
 
     for (int tile = t_begin; tile < t_end; ++tile) {
       const int k0 = tile * TK;
+      if constexpr (MODE != 0) {
+        int any = MODE == 2;
+        for (int l = tid; l < Q * MW; l += nt) {
+          m_s[l] = tile_mask_word(bits, cnt, b, Q, l / MW, K, words, k0, l % MW);
+          any |= m_s[l] != 0u;
+        }
+        if (!__syncthreads_or(any)) continue;   // uniform: every thread skips
+      }
       for (int l = tid; l < C * TK; l += nt) {
         const int c = l / TK, t = l % TK;
         f_s[l] = (k0 + t < K) ? fb[(size_t)c * K + k0 + t] : 0.f;
@@ -219,15 +262,9 @@ __global__ void __launch_bounds__(MAX_PAIRS) xattn_partial_kernel(
         const int t = l / R, r = l % R;
         k_s[t * RP + r] = (k0 + t < K) ? P[(size_t)(k0 + t) * E + e0 + r] : 0.f;
       }
-      for (int l = tid; l < Q * MW; l += nt) {
-        const int qq = l / MW, w = l % MW;
-        const int key0 = k0 + w * 32;
-        const int nvalid = min(max(K - key0, 0), 32);
-        const uint32_t valid = nvalid == 32 ? 0xffffffffu : ((1u << nvalid) - 1u);
-        const int widx = key0 / 32;
-        const uint32_t word =
-            (widx < words) ? bits[((size_t)b * Q + qq) * words + widx] : 0u;
-        m_s[l] = (cnt[b * Q + qq] == 0 ? 0xffffffffu : word) & valid;
+      if constexpr (MODE == 0) {
+        for (int l = tid; l < Q * MW; l += nt)
+          m_s[l] = tile_mask_word(bits, cnt, b, Q, l / MW, K, words, k0, l % MW);
       }
       __syncthreads();
 
@@ -346,16 +383,18 @@ const char* uoms_error_string(int code) { return cudaGetErrorString((cudaError_t
 
 // Launches the four kernels on `stream`. Scratch (allocated by the caller):
 // P [K, E] f32, bits [B, Q, ceil(K/32)] u32, cnt [B, Q] i32,
-// partial [B, nsplit, H, Q, D+1] f32. Returns cudaGetLastError().
+// partial [B, nsplit, H, Q, D+1] f32. skip_mode: 0 dense, 1 tile skipping,
+// 2 tile skipping with every tile present. Returns cudaGetLastError().
 int uoms_fused_xattn(const float* qn, const float* featT, const float* mfT,
                      const float* me, const float* posT, const float* awk,
                      const float* awv, const float* wk, const float* ck,
                      const float* cv, const int* present, float* out, float* P,
                      uint32_t* bits, int* cnt, float* partial, int B, int H,
                      int Q, int D, int C, int Cm, int K, int nsplit,
-                     int tiles_per_split, float kappa, void* stream) {
+                     int tiles_per_split, float kappa, int skip_mode, void* stream) {
   if (D != HEAD_DIM || H % HPB != 0 || HPB * Q > MAX_PAIRS || B < 1 || K < 1 ||
-      nsplit < 1 || (long long)nsplit * tiles_per_split * TK < K)
+      nsplit < 1 || (long long)nsplit * tiles_per_split * TK < K || skip_mode < 0 ||
+      skip_mode > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int E = H * D;
@@ -370,12 +409,15 @@ int uoms_fused_xattn(const float* qn, const float* featT, const float* mfT,
       me, mfT, present, bits, cnt, Q, Cm, K, words);
 
   const int smem = uoms_xattn_smem_bytes(Q, C);
-  err = cudaFuncSetAttribute(xattn_partial_kernel,
+  auto partial_kernel = skip_mode == 0   ? xattn_partial_kernel<0>
+                        : skip_mode == 1 ? xattn_partial_kernel<1>
+                                         : xattn_partial_kernel<2>;
+  err = cudaFuncSetAttribute(partial_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = ((HPB * Q + 31) / 32) * 32;
   const float c_log2 = kappa * 1.4426950408889634f;
-  xattn_partial_kernel<<<dim3(nsplit, H / HPB, B), threads, smem, s>>>(
+  partial_kernel<<<dim3(nsplit, H / HPB, B), threads, smem, s>>>(
       qn, featT, P, awk, awv, cv, bits, cnt, present, partial, H, Q, C, K, words,
       tiles_per_split, c_log2);
 

@@ -7,6 +7,7 @@ package takes on the TPU. Per layer (post-norm, no dropout):
   cross-attention: vMF attention of the queries over every pixel, masked by
                    the previous head's mask (me . mf < 0), with the
                    all-masked-row guard -> ops.fused_cross_attention
+                   (tile_skip: skipping the key tiles no query attends to)
   self-attention:  vMF attention among the queries (plain PyTorch)
   FFN:             256 -> 2048 -> 256, relu
   decoder_block_norm: L2-normalize the query features
@@ -50,10 +51,12 @@ class MeanShiftAttention(nn.Module):
                                      self.out_proj.bias, self.num_heads, self.kappa)
         return out
 
-    def fused_cross(self, query, featT, mfT, me, posT, win, cin):
+    def fused_cross(self, query, featT, mfT, me, posT, win, cin, tile_skip=False,
+                    tile_skip_force_all=False):
         """Cross-attention over the raw feature map. win [C, E] / cin [E]: the
         input projection's kernel and its bias plus the level embedding,
-        folded into the k/v projections."""
+        folded into the k/v projections. tile_skip: skip the key tiles that no
+        query attends to (same output bits)."""
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
         qn = l2_normalize(split_heads(F.linear(query, wq, bq), self.num_heads))
@@ -64,7 +67,7 @@ class MeanShiftAttention(nn.Module):
         out = fused_uoms_cross_attention(
             qn.contiguous(), featT, mfT, me.contiguous(), posT, awk.contiguous(),
             awv.contiguous(), wk_io.contiguous(), ck.contiguous(), cv.contiguous(),
-            kappa=self.kappa)
+            kappa=self.kappa, tile_skip=tile_skip, tile_skip_force_all=tile_skip_force_all)
         return self.out_proj(merge_heads(l2_normalize(out)))
 
 
@@ -112,10 +115,11 @@ class MLP(nn.Module):
 class MeanShiftDecoder(nn.Module):
     def __init__(self, num_classes=2, hidden_dim=256, num_queries=100, nheads=8,
                  dim_feedforward=2048, dec_layers=6, mask_dim=256, in_channels=64,
-                 kappa=30.0):
+                 kappa=30.0, tile_skip=False, tile_skip_force_all=False):
         super().__init__()
         E, Q = hidden_dim, num_queries
         self.E, self.nheads, self.L = E, nheads, dec_layers
+        self.tile_skip, self.tile_skip_force_all = tile_skip, tile_skip_force_all
         self.query_feat = nn.Embedding(Q, E)
         self.query_embed = nn.Embedding(Q, E)
         self.level_embed = nn.Embedding(1, E)
@@ -161,7 +165,8 @@ class MeanShiftDecoder(nn.Module):
         for i in range(self.L):
             ca = self.transformer_cross_attention_layers[i]
             output = ca.norm(output + ca.meanshift_attn.fused_cross(
-                output + qpos, featT, mfT, me, posT, win, cin))
+                output + qpos, featT, mfT, me, posT, win, cin, self.tile_skip,
+                self.tile_skip_force_all))
             sa = self.transformer_self_attention_layers[i]
             qk = output + qpos
             output = sa.norm(output + sa.self_attn(qk, qk, output))

@@ -43,7 +43,8 @@ class _SemSegHead(nn.Module):
             num_classes=d.num_classes, hidden_dim=d.hidden_dim,
             num_queries=d.num_queries, nheads=d.nheads,
             dim_feedforward=d.dim_feedforward, dec_layers=d.dec_layers,
-            mask_dim=d.mask_dim, in_channels=d.conv_dim, kappa=d.kappa)
+            mask_dim=d.mask_dim, in_channels=d.conv_dim, kappa=d.kappa,
+            tile_skip=d.tile_skip, tile_skip_force_all=d.tile_skip_force_all)
 
 
 class MSMFormer(nn.Module):

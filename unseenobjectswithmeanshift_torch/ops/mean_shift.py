@@ -32,16 +32,24 @@ def cosine_distance(a, b):
     return 0.5 * (1.0 - a @ b.transpose(-1, -2))
 
 
+def first_row(first_seed_idx, N: int):
+    """The row that ``X[first_seed_idx]`` reads in the JAX package (jnp
+    indexing): -N <= i < 0 wraps to i + N, below -N clamps to 0, N and above
+    clamp to N - 1."""
+    return torch.where(first_seed_idx < 0, first_seed_idx + N, first_seed_idx).clamp(0, N - 1)
+
+
 def fps_batched(X, first_seed_idx, num_seeds: int):
     """Farthest-point seeds of every image. X [B, N, d]; first_seed_idx an int
-    or a [B] integer tensor. -> (seeds [B, S, d], indices [B, S] int32).
+    or a [B] integer tensor, read as ``first_row`` says and returned as given
+    in indices[:, 0]. -> (seeds [B, S, d], indices [B, S] int32).
 
     The loop indexes with the argmax tensor, never with a host scalar, so it
     queues its work without a host sync on a CUDA tensor too."""
     B, N, _ = X.shape
     rows = torch.arange(B, device=X.device)
-    idx = torch.as_tensor(first_seed_idx, dtype=torch.int64, device=X.device)
-    idx = idx.expand(B).clamp(0, N - 1)
+    first = torch.as_tensor(first_seed_idx, dtype=torch.int64, device=X.device).expand(B)
+    idx = first_row(first, N)
     seeds, indices = [], []
     min_dist = None
     for i in range(num_seeds):
@@ -49,7 +57,7 @@ def fps_batched(X, first_seed_idx, num_seeds: int):
             idx = torch.argmax(min_dist, dim=1)            # ties: first index
         seed = X[rows, idx]                                # [B, d]
         seeds.append(seed)
-        indices.append(idx)
+        indices.append(first if i == 0 else idx)           # indices[0] as given
         if i == num_seeds - 1:
             break
         dist = 0.5 * (1.0 - torch.bmm(X, seed[:, :, None])[..., 0])

@@ -17,7 +17,8 @@ There is no other fallback. Each kernel wrapper counts its launches in
 ``.launches``.
 
 X is [B, N, 64] fp32 (unit rows), first_seed_idx an int or a [B] integer
-tensor (clamped to [0, N)).
+tensor, read as the JAX package's ``X[first_seed_idx]`` reads it
+(``ops.mean_shift.first_row``) and returned as given in indices[:, 0].
 """
 
 from __future__ import annotations

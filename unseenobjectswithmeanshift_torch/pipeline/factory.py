@@ -10,6 +10,7 @@ over by ``weights.from_jax_variables`` / ``weights.from_jax_segnet_variables``.
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional
 
 import torch
@@ -27,13 +28,18 @@ CROP_PRESET_FOR = {"tabletop_pretrained": "crop_tabletop_pretrained"}
 def build_two_stage_predictor(preset: str = "tabletop_pretrained",
                               crop_preset: Optional[str] = None, seed: int = 0,
                               variables=None, variables_crop=None,
-                              device="cuda", cfg=None, cfg_crop=None) -> TwoStagePredictor:
+                              device="cuda", cfg=None, cfg_crop=None,
+                              tile_skip: bool = False) -> TwoStagePredictor:
     """Whole-image and crop networks in eval mode on ``device``. cfg/cfg_crop
     override the presets (tests shrink the widths). variables/variables_crop:
     JAX variable trees as numpy; without them the weights are random from
-    ``seed`` (the crop network from ``seed + 1``)."""
+    ``seed`` (the crop network from ``seed + 1``). tile_skip sets
+    ``decoder.tile_skip`` on both networks."""
     cfg = cfg or get_config(preset)
     cfg_crop = cfg_crop or get_config(crop_preset or CROP_PRESET_FOR.get(preset, preset))
+    if tile_skip:
+        cfg, cfg_crop = (replace(c, decoder=replace(c.decoder, tile_skip=True))
+                         for c in (cfg, cfg_crop))
     models = [_build(MSMFormer, c, v, from_jax_variables, seed + i, device)
               for i, (c, v) in enumerate(((cfg, variables), (cfg_crop, variables_crop)))]
     return TwoStagePredictor(models[0], models[1], cfg, cfg_crop)

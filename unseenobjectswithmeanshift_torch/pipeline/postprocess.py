@@ -75,30 +75,41 @@ def combine_masks(inst: Instances) -> torch.Tensor:
     return stamped.amax(dim=0).to(torch.int32)
 
 
+def _in_range(label, max_label: int):
+    """(flat labels with those outside [0, max_label) set to 0, mask of the
+    labels inside). The JAX package's one-hot over max_label values gives an
+    outside label no bin, so it counts nowhere and maps to 0."""
+    flat = label.reshape(-1).long()
+    inside = (flat >= 0) & (flat < max_label)
+    return torch.where(inside, flat, 0), inside
+
+
 def filter_labels_depth(label, xyz_z, threshold: float, max_label: int):
     """Zero out labels whose fraction of valid-depth (z > 0) pixels is below
-    threshold. label: [H, W] int with values in [0, max_label)."""
-    flat = label.reshape(-1).long()
-    sizes = torch.bincount(flat, minlength=max_label)
-    valid_depth = torch.bincount(flat[xyz_z.reshape(-1) > 0], minlength=max_label)
+    threshold. label: [H, W] int; values outside [0, max_label) become 0."""
+    flat, inside = _in_range(label, max_label)
+    sizes = torch.bincount(flat[inside], minlength=max_label)
+    valid_depth = torch.bincount(flat[inside & (xyz_z.reshape(-1) > 0)], minlength=max_label)
     frac = valid_depth.float() / sizes.clamp_min(1).float()
     keep = frac >= threshold
     keep[0] = True
-    return torch.where(keep[flat].reshape(label.shape), label, torch.zeros_like(label))
+    keep_pix = (keep[flat] & inside).reshape(label.shape)
+    return torch.where(keep_pix, label, torch.zeros_like(label))
 
 
 def renumber_labels_by_size(label, max_label: int):
-    """Renumber the nonzero labels of [H, W] ``label`` (values in
-    [0, max_label)) to 1..K by descending pixel count, ties in label order;
-    0 stays 0. -> (renumbered int32 [H, W], K as an int32 tensor).
+    """Renumber the nonzero labels of [H, W] ``label`` to 1..K by descending
+    pixel count, ties in label order; 0, and values outside [0, max_label),
+    become 0. -> (renumbered int32 [H, W], K as an int32 tensor).
 
     The UCN path gives the max_instances crop slots to the largest clusters
     (ref: lib/fcn/test_dataset.py:314-321 crops every label, with no cap)."""
-    flat = label.reshape(-1).long()
-    sizes = torch.bincount(flat, minlength=max_label)
+    flat, inside = _in_range(label, max_label)
+    sizes = torch.bincount(flat[inside], minlength=max_label)
     sizes[0] = 0                                       # background takes no rank
     order = torch.argsort(-sizes, stable=True)
     new_id = torch.empty_like(order)
     new_id[order] = torch.arange(1, max_label + 1, device=label.device)
     new_id = torch.where(sizes > 0, new_id, 0)
-    return new_id[flat].reshape(label.shape).to(torch.int32), (sizes > 0).sum().to(torch.int32)
+    renumbered = torch.where(inside, new_id[flat], 0)
+    return renumbered.reshape(label.shape).to(torch.int32), (sizes > 0).sum().to(torch.int32)

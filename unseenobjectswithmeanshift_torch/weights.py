@@ -6,7 +6,9 @@ MSMFormer: it takes the ``{"params": ..., "batch_stats": ...}`` tree as numpy
 arrays and returns a state_dict with the reference checkpoint's key names,
 which ``MSMFormer.load_state_dict`` accepts as it is.
 ``from_jax_segnet_variables`` does the same for the UCN SEGNET alone, the
-inverse of ``utils.checkpoint.convert_ucn_checkpoint``.
+inverse of ``utils.checkpoint.convert_ucn_checkpoint``. ``load_npz_variables``
+reads such a tree back from the ``.npz`` that ``scripts/export_release_npz.py``
+writes from a committed release, with numpy alone.
 
 Layouts: flax conv [kh, kw, in, out] -> torch [out, in, kh, kw];
 Dense [in, out] -> Linear [out, in]; the q/k/v kernels are packed into
@@ -61,6 +63,27 @@ def _backbone(params, stats, prefix, sd):
             bn(p["downsample_bn"], s["downsample_bn"], key + "downsample.1")
     sd[prefix + "fc.weight"] = _conv(params["fc"]["kernel"])
     sd[prefix + "fc.bias"] = _t(params["fc"]["bias"])
+
+
+NPZ_SEP = "/"   # joins the path of a leaf in the .npz keys
+
+
+def load_npz_variables(path) -> dict:
+    """The nested {"params", "batch_stats"} numpy tree stored in ``path``, a
+    ``.npz`` whose keys are the leaves' paths joined by NPZ_SEP (as
+    ``scripts/export_release_npz.py`` writes it). Raises if the file does not
+    load or holds no params."""
+    tree: dict = {}
+    with np.load(path, allow_pickle=False) as z:
+        for key in z.files:
+            node = tree
+            *parents, leaf = key.split(NPZ_SEP)
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = z[key]
+    if "params" not in tree:
+        raise ValueError(f"{path} holds no params tree (keys: {sorted(tree)[:5]})")
+    return tree
 
 
 def from_jax_segnet_variables(variables) -> dict:
