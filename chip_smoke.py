@@ -10,14 +10,23 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             version (evaluated in fp64) at the shapes of the main path:
             B=1 whole image (K = 480*640), B=8 compacted crops with 2 absent
             and B=20 crops, the most stage 2 can get (K = 224*224), with
-            queries whose mask removes every key (the guard).
-3. time     kernel and plain version, CUDA events, 3 warm-up runs then the
-            median of 10.
+            queries whose mask removes every key (the guard); each in both
+            positional forms (the separable factors the decoder passes, and
+            a general posT), on random positional inputs. Then the mask pass
+            alone on random fp32 mask features and embeds (not exact in
+            TF32) at B=1/K=307,200 and B=20/K=50,176 (2 absent): every mask
+            bit agrees with the sign of the fp64 logit, except where the
+            logit lies within MASK_MARGIN of its scale, and every count
+            with its bits.
+3. time     kernel (both forms, the earlier kernel's ms beside) and plain version, CUDA
+            events, 3 warm-up runs then the median of 10; the bound with
+            the products in 3xTF32 on the tensor cores and with all in fp32.
 4. main     two-stage inference at full width (tabletop_pretrained +
             crop_tabletop_pretrained, 480x640, random weights from seed 0)
             through ``build_two_stage_predictor``; counts the kernel's
-            launches per stage, checks the outputs, and checks the kernel
-            once more at the crop count that stage 2 ran.
+            launches per stage (and asserts that the general pos projection
+            ran 0 times), checks the outputs, and checks the kernel once
+            more at the crop count that stage 2 ran.
 5. ucn_check  the farthest-point seeding kernel and the hill-climbing kernel
             against their plain versions at B=1/N=307,200 (stage 1) and
             B=20/N=50,176 (the most crops stage 2 can get), on seeded
@@ -82,8 +91,8 @@ from unseenobjectswithmeanshift_torch.models import decoder as decoder_module
 from unseenobjectswithmeanshift_torch.models.position_encoding import position_embedding_sine
 from unseenobjectswithmeanshift_torch.ops import _build
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
-    TILE_KEYS, fused_uoms_cross_attention, fused_uoms_cross_attention_plain, tile_occupancy,
-    unmasked_keys,
+    TILE_KEYS, fused_uoms_cross_attention, fused_uoms_cross_attention_plain, mask_pass,
+    tile_occupancy, unmasked_keys,
 )
 from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
     fused_masked_hypersphere_attention, fused_masked_hypersphere_attention_plain,
@@ -99,18 +108,35 @@ from unseenobjectswithmeanshift_torch.pipeline.factory import (
 from unseenobjectswithmeanshift_torch.utils.preprocess import compute_xyz
 from unseenobjectswithmeanshift_torch.weights import load_npz_variables
 
-# Kernel vs plain: the kernel (fp32) is held against its plain version
-# evaluated in fp64 on the same inputs. The plain version in fp32 is no
-# sharper a yardstick than the kernel: its cuBLAS sums over 307,200 keys carry
-# ~1e-4 of rounding at stage 1 (measured on the H100), while the kernel sits
-# ~1e-6 from the fp64 result. The mask logits me . mf of the check inputs are
-# exact in fp32 (small integers times multiples of 1/4), so no key is masked
-# differently on the two sides. 2e-5 leaves 20x over the kernel's measured
-# error; an indexing or masking fault shows as O(0.1). The difference from the
+# Kernel vs plain: the kernel (fp32 data, products in 3xTF32) is held against
+# its plain version evaluated in fp64 on the same inputs. The plain version in
+# fp32 is no sharper a yardstick than the kernel: it is itself 1.7e-6 to
+# 3.4e-6 from fp64 at these shapes (measured on the H100), and the kernel 2e-6
+# to 5e-6. The mask logits me . mf of the check inputs are exact in fp32 and
+# in 3xTF32 (small integers times multiples of 1/4), so no key is masked
+# differently on the two sides. 2e-5 leaves 4x over the kernel's measured
+# error; an indexing or masking fault shows as O(0.1), a product in plain
+# 1xTF32 as ~2e-3 (tests/test_torch_tf32_split.py). The difference from the
 # fp32 plain version is printed too.
 TOL = 2e-5
+# The mask bits are checked apart, on fp32 inputs that TF32 does not hold
+# exactly. The products in 3xTF32 put a logit within ~2^-22 of its scale
+# sum_c |me_c mf_c| of the exact one (3.4e-7 in the numpy model,
+# tests/test_torch_tf32_split.py); in plain 1xTF32 within ~2^-11 (1.4e-4).
+# A key whose fp64 logit lies within MASK_MARGIN (16 fp32 ulps) of its scale
+# may take either bit; every other key must take the fp64 logit's sign.
+MASK_MARGIN = 2.0 ** -19
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
+# H100 SXM TF32 tensor cores (495 TFLOP/s dense); 3xTF32 spends three TF32
+# products on one fp32 product
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+# the earlier cross-attention kernel's ms (plain-FMA passes with a per-key pos
+# projection; PERF.md section 6, H100 80GB HBM3 at 700 W), printed beside
+# this run's
+EARLIER_XATTN_MS = {"stage1_B1_K307200": 6.593, "crops_B8_K50176": 5.867,
+                "crops_B20_K50176": 19.270}
+FORMS = ("separable", "general")
 H, Q, D, C, CM = 8, 100, 32, 64, 256
 E = H * D
 
@@ -124,15 +150,18 @@ def phase_done(name, t0):
     sync_print(f"phase={name} seconds={time.perf_counter() - t0:.3f}")
 
 
-def make_inputs(B, h, w, absent=(), seed=0):
+def make_inputs(B, h, w, absent=(), seed=0, form="separable"):
     """Seeded inputs at the decoder's full width, made on the device. Mask
     features are multiples of 1/4 and mask embeds small integers, so every
     mask logit is exact. Queries 0-3 of every image weight only channel 0,
     which is made positive everywhere, negatively: their mask removes every
-    key (the guard)."""
+    key (the guard). The positional input is random and uniform in [-1, 1],
+    as the sine encoding is: posT [E, K] for form "general", the pair
+    (pos_y [E/2, h], pos_x [E/2, w]) for form "separable"."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     K = h * w
     rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    un = lambda *s: torch.rand(*s, generator=g, device="cuda") * 2.0 - 1.0
     qn = rn(B, H, Q, D)
     qn = qn / qn.norm(dim=-1, keepdim=True)
     featT = rn(B, C, K) * 0.3
@@ -141,22 +170,31 @@ def make_inputs(B, h, w, absent=(), seed=0):
     me = torch.round(rn(B, Q, CM) * 3.0)
     me[:, :4] = 0.0
     me[:, :4, 0] = -5.0
-    posT = position_embedding_sine(h, w, E // 2).reshape(K, E).T.contiguous()
-    args = [qn, featT, mfT, me, posT, rn(C, E) * 0.2, rn(C, E) * 0.2, rn(E, E) * 0.1,
+    pos = un(E, K) if form == "general" else (un(E // 2, h), un(E // 2, w))
+    args = [qn, featT, mfT, me, pos, rn(C, E) * 0.2, rn(C, E) * 0.2, rn(E, E) * 0.1,
             rn(E) * 0.1, rn(E) * 0.1]
     present = torch.ones(B, dtype=torch.bool, device="cuda")
     for b in absent:
         present[b] = False
-    return [a.contiguous() for a in args], present
+    return [a if isinstance(a, tuple) else a.contiguous() for a in args], present
+
+
+def double(args):
+    """The inputs in fp64 (either positional form)."""
+    return [tuple(t.double() for t in a) if isinstance(a, tuple) else a.double() for a in args]
 
 
 def work(args, present, occ=None):
-    """(fp32 operations, bytes) the function needs for these inputs: each input
-    read once and the output written once; absent images need no work. With
-    occ [B, T] (tile skipping), the k/v projections and the attention run on
-    the occupied tiles only, the pos projection on the tiles some image
-    occupies, and only those columns of featT and posT are read."""
-    qn, featT = args[0], args[1]
+    """(tensor-core operations, fp32-pipe operations, bytes) the function
+    needs for these inputs: each input read once and the output written once;
+    absent images need no work. The products (mask logits, k/v projections,
+    q.k^, p.[v|1]) run on the tensor cores; the positional tables on the fp32
+    pipe: 2 (h + w) (E/2) E operations for the separable form, 2 K E^2 for the
+    general one. With occ [B, T] (tile skipping), the k/v projections and the
+    attention run on the occupied tiles only, the general pos projection on
+    the tiles some image occupies, and only those columns of featT and posT
+    are read."""
+    qn, featT, pos = args[0], args[1], args[4]
     B, K = featT.shape[0], featT.shape[2]
     n = int(present.sum())
     if occ is None:
@@ -164,11 +202,16 @@ def work(args, present, occ=None):
     tile_keys = lambda o: min(K, int(o.sum()) * TILE_KEYS)
     k_any = tile_keys(occ.any(0))
     k_img = sum(tile_keys(occ[b]) for b in range(B))
-    flops = (2 * k_any * E * E + n * 2 * Q * K * CM
-             + k_img * (4 * C * E + 2 * H * Q * D + 2 * H * Q * (D + 1)))
-    nbytes = (sum(a.numel() * a.element_size() for a in args) + present.numel()
-              + qn.numel() * 4 - (K - k_any) * E * 4 - (B * K - k_img) * C * 4)
-    return flops, nbytes
+    tc = n * 2 * Q * K * CM + k_img * (4 * C * E + 2 * H * Q * D + 2 * H * Q * (D + 1))
+    nbytes = (sum(t.numel() * t.element_size() for a in args
+                  for t in (a if isinstance(a, tuple) else (a,)))
+              + present.numel() + qn.numel() * 4 - (B * K - k_img) * C * 4)
+    if isinstance(pos, tuple):
+        fma = 2 * (pos[0].shape[1] + pos[1].shape[1]) * (E // 2) * E
+    else:
+        fma = 2 * k_any * E * E
+        nbytes -= (K - k_any) * E * 4
+    return tc, fma, nbytes
 
 
 def bound(flops, nbytes):
@@ -178,13 +221,23 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_case(name, B, h, w, absent=()):
+def xattn_bound(tc, fma, nbytes):
+    """(bound ms, what bounds it) of the cross-attention with the arithmetic
+    it uses: its products in 3xTF32 on the tensor cores, the pos tables on
+    the fp32 pipe; against the bytes over the memory rate."""
+    t_ops = tc / PEAK_3XTF32_FLOPS + fma / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_case(name, B, h, w, absent=(), form="separable"):
     """Kernel against its plain version in fp64 on make_inputs(B, h, w,
-    absent); raises when they disagree. -> (args, present, max_abs_err)."""
-    args, present = make_inputs(B, h, w, absent)
+    absent, form=form); raises when they disagree. -> (args, present,
+    max_abs_err)."""
+    args, present = make_inputs(B, h, w, absent, form=form)
     got = fused_uoms_cross_attention(*args, present=present)
     want = fused_uoms_cross_attention_plain(*args, present=present)
-    want64 = fused_uoms_cross_attention_plain(*[a.double() for a in args], present=present)
+    want64 = fused_uoms_cross_attention_plain(*double(args), present=present)
     torch.cuda.synchronize()
     err = (got.double() - want64).abs().max().item()
     err32 = (got - want).abs().max().item()
@@ -195,13 +248,74 @@ def check_case(name, B, h, w, absent=()):
     finite = bool(torch.isfinite(got).all())
     absent_zero = all(bool((got[b] == 0).all()) for b in absent)
     del got, want, want64, rows
-    sync_print(f"check {name}: max_abs_err={err:.3e} (vs the plain version in fp64, "
+    sync_print(f"check {name} {form}: max_abs_err={err:.3e} (vs the plain version in fp64, "
                f"tol={TOL:.0e}) vs_plain_fp32={err32:.3e} plain_fp32_vs_fp64={plain_err:.3e} "
                f"worst_query={worst_q} guard_rows={guard_rows} finite={finite} "
                f"absent_zero={absent_zero}")
     if not (err <= TOL and finite and absent_zero and guard_rows > 0):
-        raise AssertionError(f"kernel disagrees with its plain version at {name}")
+        raise AssertionError(f"kernel disagrees with its plain version at {name} {form}")
     return args, present, err
+
+
+def mask_inputs(B, K, seed=0):
+    """(me [B, Q, Cm], mfT [B, Cm, K]) random in fp32, with full mantissas:
+    the TF32 split of each operand leaves a nonzero low part. Queries 0-3
+    are masked everywhere (their logits are at most -1.25)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    me = torch.randn(B, Q, CM, generator=g, device="cuda")
+    mfT = torch.randn(B, CM, K, generator=g, device="cuda") * 0.5
+    mfT[:, 0] = mfT[:, 0].abs() + 0.25
+    me[:, :4] = 0.0
+    me[:, :4, 0] = -5.0
+    return me, mfT
+
+
+def mask_mismatches(bits, cnt, me, mfT, present=None):
+    """Holds the mask pass's (bits, cnt) to the fp64 logits me @ mfT of the
+    present images. -> dict: "bad" keys whose bit differs from the fp64
+    logit's sign although |logit| > MASK_MARGIN * scale; "near" keys within
+    the margin; "flipped" keys whose bit differs at all; "worst" the largest
+    |logit| / scale among the flipped keys (the measured error, 0 if none);
+    "cnt_ok" every count equals the number of its bits."""
+    B, Q, K = bits.shape[0], bits.shape[1], mfT.shape[-1]
+    keep = (torch.ones(B, dtype=torch.bool, device=bits.device) if present is None
+            else present.bool())
+    out = dict(bad=0, near=0, flipped=0, worst=0.0, cnt_ok=True)
+    shifts = torch.arange(32, device=bits.device, dtype=torch.int32)
+    for b in keep.nonzero().flatten().tolist():   # one image at a time: fp64 [Q, K]
+        got = ((bits[b].unsqueeze(-1) >> shifts) & 1).bool().reshape(Q, -1)[:, :K]
+        logit = me[b].double() @ mfT[b].double()
+        scale = me[b].double().abs() @ mfT[b].double().abs()
+        flipped = got != (logit >= 0)
+        near = logit.abs() <= MASK_MARGIN * scale
+        out["bad"] += int((flipped & ~near).sum())
+        out["near"] += int(near.sum())
+        out["flipped"] += int(flipped.sum())
+        if flipped.any():
+            out["worst"] = max(out["worst"], float((logit.abs() / scale)[flipped].max()))
+        out["cnt_ok"] &= bool(torch.equal(cnt[b], got.sum(-1, dtype=torch.int32)))
+    return out
+
+
+def check_mask_case(name, B, K, absent=()):
+    """The mask pass alone on mask_inputs(B, K), held by mask_mismatches;
+    raises on a bad bit or count. -> the mismatch dict."""
+    me, mfT = mask_inputs(B, K)
+    present = torch.ones(B, dtype=torch.bool, device="cuda")
+    for b in absent:
+        present[b] = False
+    bits, cnt = mask_pass(me, mfT, present)
+    r = mask_mismatches(bits, cnt, me, mfT, present)
+    absent_zero = all(bool((bits[b] == 0).all() and (cnt[b] == 0).all()) for b in absent)
+    guard = bool((cnt[present][:, :4] == 0).all())
+    sync_print(f"check mask {name}: bad={r['bad']} (keys beyond the margin "
+               f"{MASK_MARGIN:.2e} of the scale whose bit disagrees with the fp64 logit) "
+               f"flipped={r['flipped']} near={r['near']} worst_flipped_logit/scale="
+               f"{r['worst']:.3e} counts_match_bits={r['cnt_ok']} guard_rows_empty={guard} "
+               f"absent_zero={absent_zero}")
+    if not (r["bad"] == 0 and r["cnt_ok"] and guard and absent_zero):
+        raise AssertionError(f"mask pass disagrees with the fp64 mask at {name}")
+    return r
 
 
 def decisive_predictor(seed=0, **kwargs):
@@ -397,19 +511,23 @@ def msmformer_main_phase(results, t0):
     sync_print(f"main: models built and moved, {time.perf_counter() - t0:.1f} s")
 
     fused_uoms_cross_attention.launches = 0
+    fused_uoms_cross_attention.general_pos_launches = 0
     s1 = pred.stage1(image, xyz)
     torch.cuda.synchronize()
     n_stage1 = fused_uoms_cross_attention.launches
     refined = pred.refine(s1)
     torch.cuda.synchronize()
     launches = fused_uoms_cross_attention.launches
+    general_pos = fused_uoms_cross_attention.general_pos_launches
     n_stage2 = launches - n_stage1
     n_crops = int(sum(int(c.present.sum()) for c in s1.crops))
     labels = s1.labels
-    sync_print(f"main: launches stage1={n_stage1} stage2={n_stage2} present_crops={n_crops} "
+    sync_print(f"main: launches stage1={n_stage1} stage2={n_stage2} "
+               f"general_pos_projection={general_pos} present_crops={n_crops} "
                f"stage1_instances={int((labels.unique() >= 2).sum())} "
                f"refined_instances={int((refined.unique() >= 1).sum())}")
     assert n_stage1 == 6 and n_stage2 == 6, "the decoder did not launch the kernel once per layer"
+    assert general_pos == 0, "the decoder ran the general (per-key) pos projection"
     assert n_crops >= 1, "stage 1 gave no crop, so stage 2 did not run"
     assert labels.shape == (1, 480, 640) and labels.dtype == torch.int32
     assert refined.shape == (1, 480, 640) and refined.dtype == torch.int32
@@ -442,7 +560,7 @@ def msmformer_main_phase(results, t0):
     name = f"stage2_B{n_crops}_K50176"
     del out1, out2
     torch.cuda.empty_cache()
-    results[name] = {"max_abs_err": check_case(name, n_crops, 224, 224)[2]}
+    results[name] = {"separable": {"max_abs_err": check_case(name, n_crops, 224, 224)[2]}}
     return launches
 
 
@@ -502,7 +620,7 @@ def tile_skip_check_phase():
         dense, skip = call(), call(tile_skip=True)
         force = call(tile_skip=True, tile_skip_force_all=True)
         equal = torch.equal(skip, dense) and torch.equal(force, dense)
-        want64 = fused_uoms_cross_attention_plain(*[a.double() for a in args], present=present,
+        want64 = fused_uoms_cross_attention_plain(*double(args), present=present,
                                                   tile_skip=True)
         err = (skip.double() - want64).abs().max().item()
         finite = bool(torch.isfinite(skip).all())
@@ -513,11 +631,12 @@ def tile_skip_check_phase():
         force_ms = time_ms(lambda: call(tile_skip=True, tile_skip_force_all=True))
         plain_ms = time_ms(lambda: fused_uoms_cross_attention_plain(
             *args, present=present, tile_skip=True), warmup=1, reps=3)
-        flops, nbytes = work(args, present, occ)
-        bound_ms, bound_by = bound(flops, nbytes)
+        tc, fma, nbytes = work(args, present, occ)
+        bound_ms, bound_by = xattn_bound(tc, fma, nbytes)
+        flops = tc + fma
         results[name] = dict(max_abs_err=err, skipped_share=share, ms=ms, dense_ms=dense_ms,
                              force_all_ms=force_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
+                             bound_by=bound_by, bound_fp32_ms=bound(flops, nbytes)[0])
         sync_print(f"tile_skip_check {name}: equal_to_dense={equal} max_abs_err={err:.3e} "
                    f"(vs the plain version in fp64, tol={TOL:.0e}) finite={finite} "
                    f"skipped_share={share:.4f} kernel_ms skip={ms:.3f} dense={dense_ms:.3f} "
@@ -906,34 +1025,47 @@ def main(argv=None):
                 print("  " + line.strip(), flush=True)
     phase_done("build", t0)
 
-    # 2. kernel vs plain at the main path's shapes
+    # 2. kernel vs plain at the main path's shapes, both positional forms
     t0 = time.perf_counter()
     shapes = {"stage1_B1_K307200": (1, 480, 640, ()),
               "crops_B8_K50176": (8, 224, 224, (3, 6)),
               "crops_B20_K50176": (20, 224, 224, ())}
-    cases, results = {}, {}
+    results = {}
     for name, s in shapes.items():
-        args, present, err = check_case(name, *s)
-        cases[name] = (args, present)
-        results[name] = {"max_abs_err": err}
-        torch.cuda.empty_cache()
+        results[name] = {}
+        for form in FORMS:
+            results[name][form] = {"max_abs_err": check_case(name, *s, form=form)[2]}
+            torch.cuda.empty_cache()
+    mask_checks = {"stage1_B1_K307200": check_mask_case("stage1_B1_K307200", 1, 480 * 640),
+                   "crops_B20_K50176": check_mask_case("crops_B20_K50176", 20, 224 * 224,
+                                                       (5, 12))}
+    torch.cuda.empty_cache()
     phase_done("check", t0)
 
-    # 3. timing
+    # 3. timing: kernel (both forms), plain, bounds, and the earlier kernel's ms
     t0 = time.perf_counter()
-    for name, (args, present) in cases.items():
-        ms = time_ms(lambda: fused_uoms_cross_attention(*args, present=present))
-        plain_ms = time_ms(lambda: fused_uoms_cross_attention_plain(*args, present=present))
-        flops, nbytes = work(args, present)
-        bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-        results[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             gflop=flops / 1e9, gbytes=nbytes / 1e9)
-        sync_print(f"time {name}: kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-                   f"bound_ms={bound_ms:.3f} ({bound_by}; {flops / 1e9:.1f} GFLOP, "
-                   f"{nbytes / 1e9:.3f} GB) achieved={flops / ms / 1e9:.2f} TFLOP/s")
-    del cases, args, present
-    torch.cuda.empty_cache()
+    for name, (B, h, w, absent) in shapes.items():
+        for form in FORMS:
+            args, present = make_inputs(B, h, w, absent, form=form)
+            r = results[name][form]
+            r["ms"] = time_ms(lambda: fused_uoms_cross_attention(*args, present=present))
+            if form == "separable":   # the plain version expands the factors to posT
+                r["plain_ms"] = time_ms(
+                    lambda: fused_uoms_cross_attention_plain(*args, present=present))
+            tc, fma, nbytes = work(args, present)
+            r["bound_ms"], r["bound_by"] = xattn_bound(tc, fma, nbytes)
+            r["bound_fp32_ms"] = bound(tc + fma, nbytes)[0]
+            r.update(gflop=(tc + fma) / 1e9, gbytes=nbytes / 1e9)
+            sync_print(f"time {name} {form}: kernel_ms={r['ms']:.3f} (earlier kernel: "
+                       f"{EARLIER_XATTN_MS[name]:.3f}) "
+                       + (f"plain_ms={r['plain_ms']:.3f} " if "plain_ms" in r else "")
+                       + f"bound_ms={r['bound_ms']:.3f} ({r['bound_by']}; 3xTF32 products "
+                       f"{tc / 1e9:.1f} GFLOP at {PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s, pos "
+                       f"tables {fma / 1e9:.2f} GFLOP at {PEAK_FP32_FLOPS / 1e12:.0f}, "
+                       f"{nbytes / 1e9:.3f} GB) bound_fp32_ms={r['bound_fp32_ms']:.3f} "
+                       f"achieved={(tc + fma) / r['ms'] / 1e9:.2f} TFLOP/s")
+            del args, present
+            torch.cuda.empty_cache()
     phase_done("time", t0)
 
     # 4. two-stage main path at full width
@@ -968,17 +1100,19 @@ def main(argv=None):
     mattn_launches, mattn_results = masked_attention_phase()
     phase_done("masked_attention", t0)
 
-    s1r = results["stage1_B1_K307200"]
+    s1r = results["stage1_B1_K307200"]["separable"]
     kernels = [{
         "name": "fused_uoms_cross_attention",
         "route": "cuda",
         "source": "unseenobjectswithmeanshift_torch/csrc/fused_cross_attention.cu",
         "replaces": "unseenobjectswithmeanshift_tpu/ops/fused_cross_attention.py:334",
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+        "max_abs_err": max(x["max_abs_err"] for r in results.values() for x in r.values()),
         "ms": s1r["ms"], "plain_ms": s1r["plain_ms"], "bound_ms": s1r["bound_ms"],
         "bound_by": s1r["bound_by"], "library_ms": None,
-        "shapes": results,
+        "ms_general_pos": results["stage1_B1_K307200"]["general"]["ms"],
+        "bound_fp32_ms": s1r["bound_fp32_ms"],
+        "shapes": results, "mask_checks": mask_checks,
     }]
     u1 = ucn_results["stage1_B1_N307200"]
     for name, line, err_key in (("fps_seeds", 242, "fps_max_gap"),

@@ -4,7 +4,11 @@
 
 1. The fused cross-attention alone at the stage-1 shape (B=1, K=480*640) and
    at the crop shape (B=8 with 2 absent, K=224*224), under torch.profiler: the
-   device time of each of its four CUDA kernels.
+   device time of each of its passes by kernel name (pos_table_kernel,
+   mask_kernel, xattn_partial_kernel, xattn_reduce_kernel, and the memset of
+   the counts), with the decoder's separable positional input and, at the
+   stage-1 shape, with a general posT (whose pos_table_kernel projects every
+   key).
 2. One full-width two-stage inference (the main path of chip_smoke.py) under
    torch.profiler: device time by kernel name, the total device time, and the
    wall time, whose difference is the device's idle share.
@@ -80,9 +84,11 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     result = {"device": torch.cuda.get_device_name(0)}
 
-    for name, (B, h, w, absent) in {"stage1_B1_K307200": (1, 480, 640, ()),
-                                    "crops_B8_K50176": (8, 224, 224, (3, 6))}.items():
-        args, present = chip_smoke.make_inputs(B, h, w, absent)
+    for name, (B, h, w, absent, form) in {
+            "stage1_B1_K307200": (1, 480, 640, (), "separable"),
+            "stage1_B1_K307200_general_pos": (1, 480, 640, (), "general"),
+            "crops_B8_K50176": (8, 224, 224, (3, 6), "separable")}.items():
+        args, present = chip_smoke.make_inputs(B, h, w, absent, form=form)
         for _ in range(3):
             fused_uoms_cross_attention(*args, present=present)
         torch.cuda.synchronize()

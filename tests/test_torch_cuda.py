@@ -14,10 +14,15 @@ import pytest
 import torch
 
 from unseenobjectswithmeanshift_torch.config import get_config
-from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
-    fused_uoms_cross_attention, fused_uoms_cross_attention_plain, tile_occupancy,
-    unmasked_keys,
+from unseenobjectswithmeanshift_torch.models.decoder import MeanShiftDecoder
+from unseenobjectswithmeanshift_torch.models.position_encoding import (
+    position_embedding_sine, position_embedding_sine_factors,
 )
+from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
+    expand_pos, fused_uoms_cross_attention, fused_uoms_cross_attention_plain, mask_pass,
+    tile_occupancy, unmasked_keys,
+)
+from unseenobjectswithmeanshift_torch.weights import init_random
 from unseenobjectswithmeanshift_torch.ops.mean_shift import seed_hill_climbing
 from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
     fps_seeds, fps_seeds_plain, mean_shift_seeds,
@@ -26,7 +31,9 @@ from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
     fused_masked_hypersphere_attention, fused_masked_hypersphere_attention_plain,
     masked_hypersphere_attention, masked_hypersphere_attention_plain,
 )
-from chip_smoke import CLIMB_TOL, FPS_TOL, decisive_predictor, decisive_ucn_predictor
+from chip_smoke import (
+    CLIMB_TOL, FPS_TOL, decisive_predictor, decisive_ucn_predictor, mask_mismatches,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,7 +67,9 @@ def make_inputs(seed, B, Q, K, H=8, D=32, C=64, Cm=256):
 
 
 @pytest.mark.parametrize("B,Q,K,present", [(1, 100, 4096, None), (3, 16, 1000, [1, 0, 1]),
-                                           (2, 100, 777, [0, 1]), (2, 128, 64, None)])
+                                           (2, 100, 777, [0, 1]), (2, 128, 64, None),
+                                           (1, 37, 3000, None),
+                                           (20, 100, 1536, [i % 7 != 3 for i in range(20)])])
 def test_kernel_matches_plain(cuda, B, Q, K, present):
     # full-width heads; K not a multiple of the 64-key tile; absent images
     args = [torch.from_numpy(a).to(cuda) for a in make_inputs(0, B, Q, K)]
@@ -70,8 +79,9 @@ def test_kernel_matches_plain(cuda, B, Q, K, present):
     torch.cuda.synchronize()
     assert fused_uoms_cross_attention.launches == before + 1
     want = fused_uoms_cross_attention_plain(*[a.double() for a in args], present=p)
-    # against the plain version in fp64: the kernel's fp32 error is ~1e-6
-    # (measured at K = 307,200 by chip_smoke.py); masks are exact on both sides
+    # against the plain version in fp64: the kernel's error (fp32 data,
+    # products in 3xTF32) is 2e-6 to 5e-6 (measured at K = 307,200 and 50,176
+    # by chip_smoke.py); masks are exact on both sides
     np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(), atol=1e-5)
     if present is not None:
         for b, on in enumerate(present):
@@ -301,6 +311,69 @@ def test_tile_skip_kernel_equals_dense_kernel(cuda, B, Q, K, present, window, gu
         occ = tile_occupancy(unmasked_keys(args[3] @ args[2]), p)
         kept = [b for b in range(B) if (present is None or present[b]) and b not in guard_images]
         assert kept and not occ[kept].all()
+
+
+@pytest.mark.parametrize("B,Q,h,w,present", [(1, 100, 48, 64, None), (3, 37, 30, 31, [1, 0, 1]),
+                                             (2, 128, 17, 23, None)])
+def test_separable_pos_matches_general_pos(cuda, B, Q, h, w, present):
+    # the decoder's input form (sine factors, h + w projected rows) against the
+    # general form on the same sine encoding, and both against fp64
+    args = [torch.from_numpy(a).to(cuda) for a in make_inputs(7, B, Q, h * w)]
+    factors = position_embedding_sine_factors(h, w, 128, device=cuda)
+    posT = position_embedding_sine(h, w, 128, device=cuda).reshape(h * w, 256).T.contiguous()
+    assert torch.equal(expand_pos(factors), posT)
+    p = None if present is None else torch.tensor(present, dtype=torch.bool, device=cuda)
+    before = (fused_uoms_cross_attention.launches, fused_uoms_cross_attention.general_pos_launches)
+    sep = fused_uoms_cross_attention(*args[:4], factors, *args[5:], present=p)
+    gen = fused_uoms_cross_attention(*args[:4], posT, *args[5:], present=p)
+    skip = fused_uoms_cross_attention(*args[:4], factors, *args[5:], present=p, tile_skip=True)
+    torch.cuda.synchronize()
+    assert (fused_uoms_cross_attention.launches,
+            fused_uoms_cross_attention.general_pos_launches) == (before[0] + 3, before[1] + 1)
+    assert torch.equal(skip, sep)
+    np.testing.assert_allclose(sep.cpu().numpy(), gen.cpu().numpy(), atol=1e-5)
+    want = fused_uoms_cross_attention_plain(*[a.double() for a in args[:4]], posT.double(),
+                                            *[a.double() for a in args[5:]], present=p)
+    np.testing.assert_allclose(sep.double().cpu().numpy(), want.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("B,Q,K,present", [(1, 100, 4096, None), (3, 37, 777, [1, 0, 1]),
+                                           (2, 128, 5000, None), (1, 16, 33, None)])
+def test_mask_pass_matches_fp64_signs(cuda, B, Q, K, present):
+    # random fp32 mask features and embeds, whose TF32 low parts are nonzero:
+    # every bit takes the sign of the fp64 logit outside chip_smoke's
+    # MASK_MARGIN of its scale (plain 1xTF32 misses it; see
+    # tests/test_torch_tf32_split.py), every count equals its bits
+    rng = np.random.RandomState(3)
+    me = torch.from_numpy(rng.randn(B, Q, 256).astype(np.float32)).to(cuda)
+    mfT = torch.from_numpy((rng.randn(B, 256, K) * 0.5).astype(np.float32)).to(cuda)
+    p = None if present is None else torch.tensor(present, dtype=torch.bool, device=cuda)
+    before = mask_pass.launches
+    bits, cnt = mask_pass(me, mfT, p)
+    torch.cuda.synchronize()
+    assert mask_pass.launches == before + 1
+    r = mask_mismatches(bits, cnt, me, mfT, p)
+    assert r["bad"] == 0 and r["cnt_ok"], r
+    for b in range(B):
+        if present is not None and not present[b]:
+            assert (bits[b] == 0).all() and (cnt[b] == 0).all()
+
+
+def test_decoder_runs_no_general_pos_projection(cuda):
+    dec = init_random(MeanShiftDecoder(hidden_dim=256, num_queries=100, nheads=8,
+                                       dim_feedforward=256, dec_layers=2, mask_dim=256,
+                                       in_channels=64), torch.Generator().manual_seed(0))
+    dec = dec.to(cuda).eval()
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 24, 40, 64).astype(np.float32)).to(cuda)
+    mf = torch.from_numpy(rng.randn(2, 24, 40, 256).astype(np.float32)).to(cuda)
+    before = (fused_uoms_cross_attention.launches, fused_uoms_cross_attention.general_pos_launches)
+    with torch.no_grad():
+        out = dec(x, mf)
+    torch.cuda.synchronize()
+    assert fused_uoms_cross_attention.launches == before[0] + 2
+    assert fused_uoms_cross_attention.general_pos_launches == before[1]
+    assert torch.isfinite(out["pred_logits"]).all()
 
 
 def mha_inputs(seed, B, Q, K, H=8, D=32, guard=True):

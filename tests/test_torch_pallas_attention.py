@@ -10,7 +10,8 @@ import torch
 
 from unseenobjectswithmeanshift_tpu.ops import pallas_attention as jpa
 from unseenobjectswithmeanshift_torch.ops import pallas_attention as pa
-from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import TILE_KEYS, launch_plan
+from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import TILE_KEYS
+from unseenobjectswithmeanshift_torch.ops.pallas_attention import launch_plan
 
 # fp32 on both sides, summed in other orders; exp(kappa s) scales an error in
 # s by kappa = 30. The JAX package holds its kernel to its reference at 2e-5

@@ -31,7 +31,7 @@ from ..ops.fused_cross_attention import fused_uoms_cross_attention
 from ..ops.hypersphere_attention import (
     l2_normalize, meanshift_attention, merge_heads, split_heads,
 )
-from .position_encoding import position_embedding_sine
+from .position_encoding import position_embedding_sine_factors
 
 
 class MeanShiftAttention(nn.Module):
@@ -51,12 +51,14 @@ class MeanShiftAttention(nn.Module):
                                      self.out_proj.bias, self.num_heads, self.kappa)
         return out
 
-    def fused_cross(self, query, featT, mfT, me, posT, win, cin, tile_skip=False,
+    def fused_cross(self, query, featT, mfT, me, pos, win, cin, tile_skip=False,
                     tile_skip_force_all=False):
-        """Cross-attention over the raw feature map. win [C, E] / cin [E]: the
-        input projection's kernel and its bias plus the level embedding,
-        folded into the k/v projections. tile_skip: skip the key tiles that no
-        query attends to (same output bits)."""
+        """Cross-attention over the raw feature map. pos: the positional
+        encoding as posT [E, K] or as its sine factors (pos_y, pos_x), which
+        the kernel projects per row and column instead of per key. win
+        [C, E] / cin [E]: the input projection's kernel and its bias plus the
+        level embedding, folded into the k/v projections. tile_skip: skip the
+        key tiles that no query attends to (same output bits)."""
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
         qn = l2_normalize(split_heads(F.linear(query, wq, bq), self.num_heads))
@@ -65,7 +67,7 @@ class MeanShiftAttention(nn.Module):
         ck = cin @ wk_io + bk
         cv = cin @ wv_io + bv
         out = fused_uoms_cross_attention(
-            qn.contiguous(), featT, mfT, me.contiguous(), posT, awk.contiguous(),
+            qn.contiguous(), featT, mfT, me.contiguous(), pos, awk.contiguous(),
             awv.contiguous(), wk_io.contiguous(), ck.contiguous(), cv.contiguous(),
             kappa=self.kappa, tile_skip=tile_skip, tile_skip_force_all=tile_skip_force_all)
         return self.out_proj(merge_heads(l2_normalize(out)))
@@ -152,8 +154,7 @@ class MeanShiftDecoder(nn.Module):
         E = self.E
         featT = x.permute(0, 3, 1, 2).reshape(B, -1, h * w).contiguous()
         mfT = mask_features.permute(0, 3, 1, 2).reshape(B, -1, h * w).contiguous()
-        posT = position_embedding_sine(h, w, E // 2, device=x.device).reshape(
-            h * w, E).T.contiguous()
+        pos = position_embedding_sine_factors(h, w, E // 2, device=x.device)
         proj = self.input_proj[0]
         win = proj.weight[:, :, 0, 0].T
         cin = proj.bias + self.level_embed.weight[0]
@@ -165,7 +166,7 @@ class MeanShiftDecoder(nn.Module):
         for i in range(self.L):
             ca = self.transformer_cross_attention_layers[i]
             output = ca.norm(output + ca.meanshift_attn.fused_cross(
-                output + qpos, featT, mfT, me, posT, win, cin, self.tile_skip,
+                output + qpos, featT, mfT, me, pos, win, cin, self.tile_skip,
                 self.tile_skip_force_all))
             sa = self.transformer_self_attention_layers[i]
             qk = output + qpos

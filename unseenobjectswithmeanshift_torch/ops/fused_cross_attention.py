@@ -20,23 +20,35 @@ machinery that an exact test makes unnecessary: they are not ported.
 Inputs (K-minor layouts, as in the JAX package):
   qn [B, H, Q, D] L2-normalized queries;  featT [B, C, K] feature map;
   mfT [B, Cm, K] mask features;  me [B, Q, Cm] previous layer's mask embed;
-  posT [E, K] positional encoding;  awk/awv [C, E] (input_proj folded in);
-  wk [E, E] pos -> k kernel ([in, out]);  ck/cv [E];  present optional [B] bool.
+  posT the positional encoding, in one of two forms:
+    general    posT [E, K];
+    separable  a pair (pos_y [E/2, h], pos_x [E/2, w]) with h * w = K: key
+               t = y * w + x has encoding [pos_y[:, y] | pos_x[:, x]], the
+               layout of the sine encoding (``position_embedding_sine_factors``);
+  awk/awv [C, E] (input_proj folded in);  wk [E, E] pos -> k kernel
+  ([in, out]);  ck/cv [E];  present optional [B] bool.
 Output [B, H, Q, D], not yet normalized; absent images give zeros.
+
+The separable form is the decoder's: the kernel then projects h + w rows of
+the encoding instead of K (``expand_pos`` gives the general form of the same
+encoding, which the plain version computes with). Launches of the general
+form's full pos projection are counted apart, in
+``fused_uoms_cross_attention.general_pos_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 TILE_KEYS = 64       # keys per tile of the attention pass (TK in the .cu)
-HEADS_PER_BLOCK = 4  # HPB in the .cu
 HEAD_DIM = 32
-MAX_PAIRS = 512      # HPB * Q threads per block at most
-BLOCKS_PER_SM = 2    # target waves of blocks over the SMs
+MAX_QUERIES = 128    # MAX_Q in the .cu: 8 tiles of 16 query rows
+MAX_CHANNELS = 64    # MAX_C in the .cu; C a multiple of 8
+BLOCKS_PER_SM = 2    # resident blocks per SM of the attention pass
 
 _argtypes_set = False
 
@@ -101,16 +113,30 @@ def masked_vmf_attention_tiles(qn, kn, vh, unmasked, kappa: float, tiles=None):
     return out[..., :D] / out[..., D:].clamp_min(1e-30)
 
 
+def expand_pos(posT):
+    """posT [E, K] from either form: a tensor is returned as it is; a pair
+    (pos_y [E/2, h], pos_x [E/2, w]) becomes [pos_y[:, y] | pos_x[:, x]] at
+    key y * w + x."""
+    if isinstance(posT, torch.Tensor):
+        return posT
+    pos_y, pos_x = posT
+    half, h, w = pos_y.shape[0], pos_y.shape[1], pos_x.shape[1]
+    return torch.cat([pos_y[:, :, None].expand(half, h, w),
+                      pos_x[:, None, :].expand(half, h, w)]).reshape(2 * half, h * w)
+
+
 def fused_uoms_cross_attention_plain(qn, featT, mfT, me, posT, awk, awv, wk, ck,
                                      cv, present=None, kappa: float = 30.0,
                                      tile_skip: bool = False,
                                      tile_skip_force_all: bool = False):
     """Plain PyTorch version of the JAX reference (:505-528), with the
-    kernel's fixed maximum. With tile_skip (and not tile_skip_force_all) the
+    kernel's fixed maximum. posT in either form (the separable one is
+    expanded first). With tile_skip (and not tile_skip_force_all) the
     attention runs only over the tiles ``tile_occupancy`` keeps; the result
     is the same bits."""
     B, H, Q, D = qn.shape
     K = featT.shape[-1]
+    posT = expand_pos(posT)
     feat = featT.transpose(1, 2)                       # [B, K, C]
     k = feat @ awk + (posT.T @ wk)[None] + ck          # [B, K, E]
     v = feat @ awv + cv
@@ -124,6 +150,57 @@ def fused_uoms_cross_attention_plain(qn, featT, mfT, me, posT, awk, awv, wk, ck,
     if present is not None:
         out = torch.where(present.bool()[:, None, None, None], out, 0.0)
     return out
+
+
+def pack_mask_bits(unmasked):
+    """[B, Q, K] bool -> [B, Q, ceil(K / 32)] int32 words, bit i of word j
+    set when key 32 j + i is unmasked: the mask pass's layout."""
+    B, Q, K = unmasked.shape
+    words = -(-K // 32)
+    u = F.pad(unmasked, (0, words * 32 - K)).reshape(B, Q, words, 32).long()
+    w = (u << torch.arange(32, device=u.device)).sum(-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def mask_pass_plain(me, mfT, present=None):
+    """Plain version of ``mask_pass``."""
+    unmasked = (me @ mfT) >= 0
+    if present is not None:
+        unmasked = unmasked & present.bool()[:, None, None]
+    return pack_mask_bits(unmasked), unmasked.sum(-1, dtype=torch.int32)
+
+
+def mask_pass(me, mfT, present=None):
+    """The cross-attention's mask pass alone: (bits [B, Q, ceil(K/32)]
+    int32 in the layout of ``pack_mask_bits``, cnt [B, Q] int32) for
+    ``me @ mfT >= 0``, before the guard; absent images give zeros. The
+    kernel's own mask, for checking it on inputs of any precision; the
+    decoder never calls this. Kernel on CUDA tensors (counted in
+    ``mask_pass.launches``), plain version on CPU tensors."""
+    if me.device.type == "cpu":
+        return mask_pass_plain(me, mfT, present)
+    B, Q, Cm = me.shape
+    K = mfT.shape[-1]
+    if Q > MAX_QUERIES:
+        raise ValueError(f"kernel takes Q <= {MAX_QUERIES}; got Q={Q}")
+    _check("me", me, (B, Q, Cm))
+    _check("mfT", mfT, (B, Cm, K))
+    present_i = (torch.ones(B, dtype=torch.int32, device=me.device) if present is None
+                 else present.to(device=me.device, dtype=torch.int32).contiguous())
+    lib = _library()
+    bits = torch.zeros((B, Q, -(-K // 32)), dtype=torch.int32, device=me.device)
+    cnt = torch.empty((B, Q), dtype=torch.int32, device=me.device)
+    rc = lib.uoms_mask_pass(me.data_ptr(), mfT.data_ptr(), present_i.data_ptr(),
+                            bits.data_ptr(), cnt.data_ptr(), B, Q, Cm, K,
+                            torch.cuda.current_stream(me.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mask_pass kernel launch failed: "
+                           f"CUDA error {rc} ({lib.uoms_error_string(rc).decode()})")
+    mask_pass.launches += 1
+    return bits, cnt
+
+
+mask_pass.launches = 0
 
 
 def _check(name, t, shape, dtype=torch.float32):
@@ -144,38 +221,48 @@ def _library():
     lib = _build.load("fused_cross_attention")
     if not _argtypes_set:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.uoms_fused_xattn.argtypes = [p] * 16 + [i] * 9 + [ctypes.c_float, i, p]
+        lib.uoms_fused_xattn.argtypes = [p] * 18 + [i] * 11 + [ctypes.c_float, i, p]
         lib.uoms_fused_xattn.restype = i
-        lib.uoms_xattn_smem_bytes.argtypes = [i, i]
-        lib.uoms_xattn_smem_bytes.restype = i
+        lib.uoms_mask_pass.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.uoms_mask_pass.restype = i
         lib.uoms_error_string.argtypes = [i]
         lib.uoms_error_string.restype = ctypes.c_char_p
         _argtypes_set = True
     return lib
 
 
-def launch_plan(B: int, H: int, K: int, sm_count: int, max_tiles=None):
-    """(nsplit, tiles_per_split): the key axis cut so that about
-    BLOCKS_PER_SM waves of blocks cover the card, with no empty split and,
-    given max_tiles, no split longer than that many tiles."""
+@functools.lru_cache(maxsize=None)
+def launch_plan(B: int, H: int, K: int, sm_count: int):
+    """(nsplit, tiles_per_split) of the cross-attention: of the cuts with no
+    empty split, the one whose waves of BLOCKS_PER_SM * sm_count resident
+    blocks take the fewest tile steps (waves x tiles per split), the fewest
+    splits on a tie. A cut that leaves a wave nearly empty costs a whole
+    wave: at B=20, K=50,176 (160 blocks a split, 264 slots) two splits of 392
+    tiles take two waves, 784 steps; 28 splits of 28 tiles take 476."""
     ntiles = -(-K // TILE_KEYS)
-    blocks_per_split = B * (H // HEADS_PER_BLOCK)
-    want = max(1, -(-BLOCKS_PER_SM * sm_count // blocks_per_split))
-    tiles_per_split = -(-ntiles // min(want, ntiles))
-    if max_tiles is not None:
-        tiles_per_split = min(tiles_per_split, max_tiles)
-    return -(-ntiles // tiles_per_split), tiles_per_split
+    blocks_per_split = B * H          # one block per (split, head, image)
+    slots = BLOCKS_PER_SM * sm_count
+    best = None
+    for want in range(1, min(ntiles, 16 * -(-slots // blocks_per_split)) + 1):
+        tiles_per_split = -(-ntiles // want)
+        nsplit = -(-ntiles // tiles_per_split)
+        steps = -(-nsplit * blocks_per_split // slots) * tiles_per_split
+        if best is None or steps < best[0]:
+            best = (steps, nsplit, tiles_per_split)
+    return best[1], best[2]
 
 
 def fused_uoms_cross_attention(qn, featT, mfT, me, posT, awk, awv, wk, ck, cv,
                                present=None, kappa: float = 30.0,
                                tile_skip: bool = False,
                                tile_skip_force_all: bool = False):
-    """Kernel on CUDA tensors, plain version on CPU tensors. tile_skip runs the
+    """Kernel on CUDA tensors, plain version on CPU tensors. posT is [E, K]
+    or the pair (pos_y, pos_x) (module docstring). tile_skip runs the
     kernel's tile-skipping variant (same output, bit for bit);
     tile_skip_force_all runs that variant with every tile present (a control
     that measures the cost of the test). Counts its kernel launches in
-    ``fused_uoms_cross_attention.launches``."""
+    ``fused_uoms_cross_attention.launches``, and those with the general
+    posT in ``fused_uoms_cross_attention.general_pos_launches``."""
     if qn.device.type == "cpu":
         return fused_uoms_cross_attention_plain(qn, featT, mfT, me, posT, awk, awv,
                                                 wk, ck, cv, present, kappa, tile_skip,
@@ -183,14 +270,25 @@ def fused_uoms_cross_attention(qn, featT, mfT, me, posT, awk, awv, wk, ck, cv,
     B, H, Q, D = qn.shape
     C, K = featT.shape[1], featT.shape[2]
     Cm, E = mfT.shape[1], H * D
-    if D != HEAD_DIM or H % HEADS_PER_BLOCK or HEADS_PER_BLOCK * Q > MAX_PAIRS:
-        raise ValueError(f"kernel takes D={HEAD_DIM}, H a multiple of "
-                         f"{HEADS_PER_BLOCK} and Q <= {MAX_PAIRS // HEADS_PER_BLOCK}; "
+    if D != HEAD_DIM or Q > MAX_QUERIES:
+        raise ValueError(f"kernel takes D={HEAD_DIM} and Q <= {MAX_QUERIES}; "
                          f"got H={H}, Q={Q}, D={D}")
+    if C % 8 or C > MAX_CHANNELS:
+        raise ValueError(f"kernel takes C a multiple of 8 up to {MAX_CHANNELS}; got C={C}")
+    general = isinstance(posT, torch.Tensor)
+    if general:
+        pos_a, pos_b, pos_h, pos_w = posT, None, K, 1
+        pos_shapes = (("posT", posT, (E, K)),)
+    else:
+        pos_a, pos_b = posT
+        pos_h, pos_w = pos_a.shape[-1], pos_b.shape[-1]
+        if pos_h * pos_w != K:
+            raise ValueError(f"pos_y [E/2, h] and pos_x [E/2, w] need h * w = K = {K}; "
+                             f"got h={pos_h}, w={pos_w}")
+        pos_shapes = (("pos_y", pos_a, (E // 2, pos_h)), ("pos_x", pos_b, (E // 2, pos_w)))
     for name, t, shape in (("qn", qn, (B, H, Q, D)), ("featT", featT, (B, C, K)),
-                           ("mfT", mfT, (B, Cm, K)), ("me", me, (B, Q, Cm)),
-                           ("posT", posT, (E, K)), ("awk", awk, (C, E)),
-                           ("awv", awv, (C, E)), ("wk", wk, (E, E)),
+                           ("mfT", mfT, (B, Cm, K)), ("me", me, (B, Q, Cm)), *pos_shapes,
+                           ("awk", awk, (C, E)), ("awv", awv, (C, E)), ("wk", wk, (E, E)),
                            ("ck", ck, (E,)), ("cv", cv, (E,))):
         _check(name, t, shape)
     if present is None:
@@ -200,30 +298,31 @@ def fused_uoms_cross_attention(qn, featT, mfT, me, posT, awk, awv, wk, ck, cv,
             raise ValueError("present must be a [B] tensor on the inputs' device")
         present_i = present.to(torch.int32).contiguous()
     lib = _library()
-    if lib.uoms_xattn_smem_bytes(Q, C) > 227 * 1024:
-        raise ValueError(f"C={C} needs more shared memory than a block has")
 
-    sm_count = torch.cuda.get_device_properties(qn.device).multi_processor_count
+    dev = qn.device
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     nsplit, tiles_per_split = launch_plan(B, H, K, sm_count)
-    out = torch.empty((B, H, Q, D), dtype=torch.float32, device=qn.device)
-    P = torch.empty((K, E), dtype=torch.float32, device=qn.device)
-    bits = torch.empty((B, Q, -(-K // 32)), dtype=torch.int32, device=qn.device)
-    cnt = torch.empty((B, Q), dtype=torch.int32, device=qn.device)
-    partial = torch.empty((B, nsplit, H, Q, D + 1), dtype=torch.float32,
-                          device=qn.device)
-    stream = torch.cuda.current_stream(qn.device).cuda_stream
+    out = torch.empty((B, H, Q, D), dtype=torch.float32, device=dev)
+    pos_row = torch.empty((K if general else pos_h, E), dtype=torch.float32, device=dev)
+    pos_col = torch.empty((1 if general else pos_w, E), dtype=torch.float32, device=dev)
+    bits = torch.empty((B, Q, -(-K // 32)), dtype=torch.int32, device=dev)
+    cnt = torch.empty((B, Q), dtype=torch.int32, device=dev)
+    partial = torch.empty((B, nsplit, H, Q, D + 1), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.uoms_fused_xattn(
-        qn.data_ptr(), featT.data_ptr(), mfT.data_ptr(), me.data_ptr(),
-        posT.data_ptr(), awk.data_ptr(), awv.data_ptr(), wk.data_ptr(),
-        ck.data_ptr(), cv.data_ptr(), present_i.data_ptr(), out.data_ptr(),
-        P.data_ptr(), bits.data_ptr(), cnt.data_ptr(), partial.data_ptr(),
-        B, H, Q, D, C, Cm, K, nsplit, tiles_per_split, float(kappa),
-        (2 if tile_skip_force_all else 1) if tile_skip else 0, stream)
+        qn.data_ptr(), featT.data_ptr(), mfT.data_ptr(), me.data_ptr(), pos_a.data_ptr(),
+        None if pos_b is None else pos_b.data_ptr(), awk.data_ptr(), awv.data_ptr(),
+        wk.data_ptr(), ck.data_ptr(), cv.data_ptr(), present_i.data_ptr(), out.data_ptr(),
+        pos_row.data_ptr(), pos_col.data_ptr(), bits.data_ptr(), cnt.data_ptr(),
+        partial.data_ptr(), B, H, Q, D, C, Cm, K, pos_h, pos_w, nsplit, tiles_per_split,
+        float(kappa), (2 if tile_skip_force_all else 1) if tile_skip else 0, stream)
     if rc != 0:
         raise RuntimeError(f"fused_uoms_cross_attention kernel launch failed: "
                            f"CUDA error {rc} ({lib.uoms_error_string(rc).decode()})")
     fused_uoms_cross_attention.launches += 1
+    fused_uoms_cross_attention.general_pos_launches += int(general)
     return out
 
 
 fused_uoms_cross_attention.launches = 0
+fused_uoms_cross_attention.general_pos_launches = 0

@@ -32,16 +32,31 @@ import ctypes
 import torch
 
 from .fused_cross_attention import (
-    HEAD_DIM, HEADS_PER_BLOCK, MAX_PAIRS, _check, launch_plan, masked_vmf_attention_tiles,
-    unmasked_keys,
+    HEAD_DIM, TILE_KEYS, _check, masked_vmf_attention_tiles, unmasked_keys,
 )
 
 _lib = None
+HEADS_PER_BLOCK = 4  # HPB in csrc/masked_attention.cu
+MAX_PAIRS = 512      # HPB * Q threads per block at most
+WAVES = 2            # target waves of blocks over the SMs
 # A thread sums its split's keys one after the other in fp32. With v of unit
 # scale, 112 tiles a split (B=20, K=50,176 under launch_plan's two waves) put
 # the kernel 2.4e-5 from fp64 on the H100; 32 tiles (2,048 keys) bound the
 # chain (at B=1, K=307,200 this is 150 splits instead of 132).
 MAX_TILES_PER_SPLIT = 32
+
+
+def launch_plan(B: int, H: int, K: int, sm_count: int, max_tiles=None):
+    """(nsplit, tiles_per_split): the key axis cut so that about WAVES
+    waves of blocks cover the card, with no empty split and, given
+    max_tiles, no split longer than that many tiles."""
+    ntiles = -(-K // TILE_KEYS)
+    blocks_per_split = B * (H // HEADS_PER_BLOCK)
+    want = max(1, -(-WAVES * sm_count // blocks_per_split))
+    tiles_per_split = -(-ntiles // min(want, ntiles))
+    if max_tiles is not None:
+        tiles_per_split = min(tiles_per_split, max_tiles)
+    return -(-ntiles // tiles_per_split), tiles_per_split
 
 
 def _normalize_heads(k):
