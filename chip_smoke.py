@@ -27,7 +27,8 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             launches per stage (and asserts that the general pos projection
             ran 0 times), checks the outputs, and checks the kernel once
             more at the crop count that stage 2 ran.
-5. ucn_check  the farthest-point seeding kernel and the hill-climbing kernel
+5. ucn_check  the farthest-point seeding kernel (one persistent cooperative
+            launch a call) and the hill-climbing kernel (3xTF32 on wgmma)
             against their plain versions at B=1/N=307,200 (stage 1) and
             B=20/N=50,176 (the most crops stage 2 can get), on seeded
             clustered unit vectors with duplicated rows (exact ties): the
@@ -36,8 +37,14 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             the kernel's own earlier seeds) within 1e-6; duplicated rows go
             to the lowest index; the first step where the chain departs from
             the fp32 plain version is printed with its gap; the climbed seeds
-            agree with the plain version in fp64 within CLIMB_TOL.
-6. ucn_time kernel, plain and bound ms of both kernels at both shapes.
+            agree with the plain version in fp64 within CLIMB_TOL, on the
+            clustered rows and on random unit rows (where products in plain
+            1xTF32 would fail it).
+6. ucn_time kernel, plain and bound ms of both kernels at both shapes, the
+            earlier kernels' ms beside them; FPS ms per step and its
+            streaming floor (the rows of X read from device memory at every
+            step over the memory rate); the climbing alone and its 3xTF32
+            and fp32 bounds.
 7. ucn_main UCN two-stage inference at full width (two ResNet34-8s SEGNETs,
             100 seeds, 10 steps, 20 crops of 224^2, 480x640) through
             ``build_ucn_predictor``, once with the defaults (seeding on the
@@ -100,7 +107,7 @@ from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
 )
 from unseenobjectswithmeanshift_torch.ops.mean_shift import connected_components, seed_hill_climbing
 from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
-    fps_seeds, fps_seeds_plain, mean_shift_seeds, mean_shift_seeds_plain,
+    device_limits, fps_plan, fps_seeds, fps_seeds_plain, mean_shift_seeds, mean_shift_seeds_plain,
 )
 from unseenobjectswithmeanshift_torch.pipeline.factory import (
     build_two_stage_predictor, build_ucn_predictor,
@@ -136,6 +143,12 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # this run's
 EARLIER_XATTN_MS = {"stage1_B1_K307200": 6.593, "crops_B8_K50176": 5.867,
                 "crops_B20_K50176": 19.270}
+# the earlier UCN kernels' ms (FPS one launch a step, plain-FMA climbing;
+# PERF.md section 6, PR 6 run 5, H100 80GB HBM3 at 700 W), printed beside
+# this run's
+EARLIER_UCN_MS = {"fps_seeds": {"stage1_B1_N307200": 4.474, "crops_B20_N50176": 12.334},
+                  "mean_shift_seeds": {"stage1_B1_N307200": 8.380,
+                                       "crops_B20_N50176": 23.976}}
 FORMS = ("separable", "general")
 H, Q, D, C, CM = 8, 100, 32, 64, 256
 E = H * D
@@ -221,10 +234,11 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def xattn_bound(tc, fma, nbytes):
-    """(bound ms, what bounds it) of the cross-attention with the arithmetic
-    it uses: its products in 3xTF32 on the tensor cores, the pos tables on
-    the fp32 pipe; against the bytes over the memory rate."""
+def tf32x3_bound(tc, fma, nbytes):
+    """(bound ms, what bounds it) of a kernel with the arithmetic it uses:
+    `tc` operations of products in 3xTF32 on the tensor cores, `fma` on the
+    fp32 pipe (the cross-attention's pos tables, FPS, exponentials); against
+    the bytes over the memory rate."""
     t_ops = tc / PEAK_3XTF32_FLOPS + fma / PEAK_FP32_FLOPS
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -354,6 +368,20 @@ def time_ms(fn, warmup=3, reps=10):
     return statistics.median(times)
 
 
+def time_in_turns(fns, warmup=2, reps=5):
+    """{name: median ms} of several functions timed as time_ms does, one
+    run of each in turn, so that a drift of the card's clock or of its
+    neighbours spreads over all of them alike."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            times[name].append(time_ms(fn, warmup=0, reps=1))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def synthetic_rgbd(seed=0, h=480, w=640):
     """A tabletop-like scene: a tilted plane with boxes and depth holes, seen by
     a 525 px pinhole camera; normalized image noise around the boxes."""
@@ -382,10 +410,11 @@ def synthetic_rgbd(seed=0, h=480, w=640):
 # unit vectors carry ~1e-7 of rounding; a wrong argmax or a stale running
 # minimum shows as O(0.01)). The seeds must be X[idx] bit for bit. The hill
 # climbing is held against its plain version evaluated in fp64 from the
-# kernel's own seeds: its fp32 sums over up to 307,200 weights of at most e^20
-# measured 3.7e-7 to 2.4e-6 from fp64 on the H100 (B=1 to B=20); CLIMB_TOL =
-# 2e-5 leaves 8x, a wrong weight or a dropped key tile shows as O(0.01). The
-# fp32 plain version is itself up to 2.1e-5 from fp64 at B=20.
+# kernel's own seeds: with its products in 3xTF32 it measured 1.5e-7 to
+# 4.0e-7 from fp64 on the H100 (B=1 to B=20; the earlier fp32 kernel 3.7e-7
+# to 2.4e-6); CLIMB_TOL = 2e-5 leaves 50x, a wrong weight or a dropped key
+# tile shows as O(0.01), plain 1xTF32 products as 1.2e-4 to 1.5e-4 (PERF.md).
+# The fp32 plain version is itself up to 2.1e-5 from fp64 at B=20.
 FPS_TOL = 1e-6
 CLIMB_TOL = 2e-5
 SEEDS, ITERS, KAPPA, EPSILON, EMBED = 100, 10, 20.0, 0.04, 64
@@ -469,24 +498,52 @@ def check_climb(name, X, first, seeds, idx):
     return err
 
 
+def check_climb_random(name, B, N, seed=0):
+    """Hill-climbing kernel against fp64 on random unit rows, where a seed's
+    own row dominates its weights: the TF32 rounding of X is not averaged
+    away there, so products in plain 1xTF32 land ~1e-4 from fp64 and fail
+    CLIMB_TOL whatever the clustering of the data (tests/test_torch_climb_tf32.py;
+    on clustered rows the rounding can average out). Raises on a failure.
+    -> max abs error."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    X = torch.randn(B, N, EMBED, generator=g, device="cuda")
+    X = (X / X.norm(dim=-1, keepdim=True)).contiguous()
+    first = torch.randint(0, N, (B,), generator=g, device="cuda", dtype=torch.int32)
+    seeds, _ = fps_seeds(X, first, SEEDS)
+    Z = mean_shift_seeds(X, first, KAPPA, SEEDS, ITERS)[0]
+    want = seed_hill_climbing(X.double(), seeds.double(), KAPPA, ITERS)
+    err = (Z.double() - want).abs().max().item()
+    sync_print(f"ucn_check climb_random {name}: max_abs_err={err:.3e} (vs the plain version in "
+               f"fp64, tol={CLIMB_TOL:.0e}; plain 1xTF32 products would be ~1e-4)")
+    if not (err <= CLIMB_TOL and bool(torch.isfinite(Z).all())):
+        raise AssertionError(f"hill-climbing kernel disagrees with fp64 on random rows at {name}")
+    return err
+
+
 def check_mean_shift(name, B, N, seed=0):
     X, first, groups = clustered_unit_vectors(B, N, seed)
     seeds, idx, gap = check_fps(name, X, first, groups)
     err = check_climb(name, X, first, seeds, idx)
-    return (X, first), {"fps_max_gap": gap, "climb_max_abs_err": err}
+    err_random = check_climb_random(name, B, N, seed)
+    return (X, first), {"fps_max_gap": gap, "climb_max_abs_err": max(err, err_random),
+                        "climb_clustered_max_abs_err": err, "climb_random_max_abs_err": err_random}
 
 
 def mean_shift_work(B, N, climb: bool):
-    """(fp32 operations, bytes) of fps_seeds, or of mean_shift_seeds with
-    climb=True: X and first read once, seeds and indices written once. FPS
-    takes S-1 distance passes (dot, 1 - p, x 0.5, min per row); a climbing
-    step takes S N (4d + 2) (dot, x kappa, exp, weighted sum) and S 3d for
-    the normalization."""
-    flops = B * (SEEDS - 1) * N * (2 * EMBED + 3)
+    """(tensor-core operations, fp32-pipe operations, bytes) of fps_seeds, or
+    of mean_shift_seeds with climb=True: X and first read once, seeds and
+    indices written once. FPS takes S-1 distance passes (dot, 1 - p, x 0.5,
+    min per row) on the fp32 pipe; a climbing step takes 4 S N d operations
+    of products (S = Z X^T and W X, on the tensor cores in 3xTF32) and S N
+    (2 + 1) more (x kappa, exp, the masking) plus S 3d for the normalization
+    on the fp32 pipe."""
+    fp32 = B * (SEEDS - 1) * N * (2 * EMBED + 3)
+    tc = 0
     if climb:
-        flops += B * ITERS * SEEDS * (N * (4 * EMBED + 2) + 3 * EMBED)
+        tc = B * ITERS * SEEDS * N * 4 * EMBED
+        fp32 += B * ITERS * SEEDS * (N * 2 + 3 * EMBED)
     nbytes = B * N * EMBED * 4 + B * 4 + B * SEEDS * (EMBED + 1) * 4
-    return flops, nbytes
+    return tc, fp32, nbytes
 
 
 def decisive_ucn_predictor(image, xyz, seed=0, **kwargs):
@@ -632,7 +689,7 @@ def tile_skip_check_phase():
         plain_ms = time_ms(lambda: fused_uoms_cross_attention_plain(
             *args, present=present, tile_skip=True), warmup=1, reps=3)
         tc, fma, nbytes = work(args, present, occ)
-        bound_ms, bound_by = xattn_bound(tc, fma, nbytes)
+        bound_ms, bound_by = tf32x3_bound(tc, fma, nbytes)
         flops = tc + fma
         results[name] = dict(max_abs_err=err, skipped_share=share, ms=ms, dense_ms=dense_ms,
                              force_all_ms=force_ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -890,25 +947,56 @@ def ucn_check_phase():
 
 
 def ucn_time_phase(cases, results):
-    """6. kernel, plain and bound ms of both kernels at both shapes."""
+    """6. kernel, plain and bound ms of both kernels at both shapes, beside
+    the earlier kernels' ms. FPS: also the design's streaming floor, the rows
+    of X a step still reads from device memory (fps_plan: not in shared
+    memory, registers or the L2) over the memory rate for S-1 steps.
+    Climbing: the 3xTF32 bound beside the fp32 one, and the climbing alone
+    (mean_shift_seeds minus fps_seeds, timed in turns)."""
     for name, (X, first) in cases.items():
         B, N, _ = X.shape
-        for kernel, fn, plain, climb in (
-                ("fps_seeds", lambda: fps_seeds(X, first, SEEDS),
-                 lambda: fps_seeds_plain(X, first, SEEDS), False),
-                ("mean_shift_seeds", lambda: mean_shift_seeds(X, first, KAPPA, SEEDS, ITERS),
+        r = results[name]
+        kernel_ms = time_in_turns({
+            "fps_seeds": lambda: fps_seeds(X, first, SEEDS),
+            "mean_shift_seeds": lambda: mean_shift_seeds(X, first, KAPPA, SEEDS, ITERS)})
+        for kernel, plain, climb in (
+                ("fps_seeds", lambda: fps_seeds_plain(X, first, SEEDS), False),
+                ("mean_shift_seeds",
                  lambda: mean_shift_seeds_plain(X, first, KAPPA, SEEDS, ITERS), True)):
-            ms = time_ms(fn, warmup=2, reps=5)
+            ms = kernel_ms[kernel]
             plain_ms = time_ms(plain, warmup=1, reps=3)
-            flops, nbytes = mean_shift_work(B, N, climb)
-            t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-            bound_ms = max(t_ops, t_bytes) * 1e3
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
-            results[name][kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                         bound_by=bound_by)
-            sync_print(f"ucn_time {kernel} {name}: kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-                       f"bound_ms={bound_ms:.4f} ({bound_by}; {flops / 1e9:.2f} GFLOP, "
-                       f"{nbytes / 1e9:.4f} GB) achieved={flops / ms / 1e9:.2f} TFLOP/s")
+            tc, fp32, nbytes = mean_shift_work(B, N, climb)
+            bound_ms, bound_by = tf32x3_bound(tc, fp32, nbytes)
+            bound_fp32_ms = bound(tc + fp32, nbytes)[0]
+            r[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             bound_fp32_ms=bound_fp32_ms)
+            earlier = EARLIER_UCN_MS[kernel].get(name)
+            head = (f"ucn_time {kernel} {name}: kernel_ms={ms:.3f} "
+                    + (f"(earlier kernel: {earlier:.3f}) " if earlier else "")
+                    + f"plain_ms={plain_ms:.3f} ")
+            if not climb:
+                plan = fps_plan(B, N, **device_limits(X.device))
+                dram_mb, l2_mb = (plan[k] * EMBED * 4 / 1e6 for k in ("streamed_rows",
+                                                                      "l2_held_rows"))
+                floor_ms = dram_mb * 1e6 * (SEEDS - 1) / PEAK_BYTES * 1e3
+                r[kernel].update(ms_per_step=ms / (SEEDS - 1), streaming_floor_ms=floor_ms,
+                                 streamed_mb_per_step=dram_mb, l2_held_mb=l2_mb)
+                sync_print(head + f"ms_per_step={ms / (SEEDS - 1) * 1e3:.2f}us "
+                           f"bound_ms={bound_ms:.4f} ({bound_by}; {fp32 / 1e9:.2f} GFLOP fp32, "
+                           f"{nbytes / 1e9:.4f} GB) streaming_floor_ms={floor_ms:.3f} "
+                           f"({dram_mb:.1f} MB a step read from device memory, {l2_mb:.1f} MB "
+                           f"kept in the L2; {plan['grid']} blocks, {plan['resident_rows']} "
+                           f"rows in shared memory, {plan['register_rows'] * 32} in registers "
+                           f"and {plan['l2_rows']} in the L2 of {plan['rows_per_block']} a "
+                           "block)")
+            else:
+                climb_ms = ms - r["fps_seeds"]["ms"]
+                r[kernel].update(climb_ms=climb_ms, climb_ms_per_step=climb_ms / ITERS)
+                sync_print(head + f"climbing_alone_ms={climb_ms:.3f} "
+                           f"(per step {climb_ms / ITERS:.3f}) bound_ms={bound_ms:.4f} "
+                           f"({bound_by}; 3xTF32 products {tc / 1e9:.1f} GFLOP at "
+                           f"{PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s, {fp32 / 1e9:.2f} GFLOP "
+                           f"fp32) bound_fp32_ms={bound_fp32_ms:.4f}")
         # connected components: adjacency on the device, one copy to the
         # host, the sequential sweep in numpy, labels back (host clock)
         Z = mean_shift_seeds(X, first, KAPPA, SEEDS, ITERS)[0]
@@ -1053,7 +1141,7 @@ def main(argv=None):
                 r["plain_ms"] = time_ms(
                     lambda: fused_uoms_cross_attention_plain(*args, present=present))
             tc, fma, nbytes = work(args, present)
-            r["bound_ms"], r["bound_by"] = xattn_bound(tc, fma, nbytes)
+            r["bound_ms"], r["bound_by"] = tf32x3_bound(tc, fma, nbytes)
             r["bound_fp32_ms"] = bound(tc + fma, nbytes)[0]
             r.update(gflop=(tc + fma) / 1e9, gbytes=nbytes / 1e9)
             sync_print(f"time {name} {form}: kernel_ms={r['ms']:.3f} (earlier kernel: "
@@ -1115,19 +1203,25 @@ def main(argv=None):
         "shapes": results, "mask_checks": mask_checks,
     }]
     u1 = ucn_results["stage1_B1_N307200"]
-    for name, line, err_key in (("fps_seeds", 242, "fps_max_gap"),
-                                ("mean_shift_seeds", 127, "climb_max_abs_err")):
+    for name, line, err_key, design in (
+            ("fps_seeds", 242, "fps_max_gap",
+             "one persistent cooperative launch a call, grid barrier a step; running "
+             "distances and part of X held on chip (shared memory, registers)"),
+            ("mean_shift_seeds", 127, "climb_max_abs_err",
+             "the FPS kernel, then hill climbing on wgmma in 3xTF32 (csrc/mean_shift_climb.cu)")):
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "unseenobjectswithmeanshift_torch/csrc/"
                       + ("fps_seeds.cu" if name == "fps_seeds" else "mean_shift_climb.cu"),
+            "design": design,
             "replaces": f"unseenobjectswithmeanshift_tpu/ops/pallas_mean_shift.py:{line}",
             "launches": sum(p[name] for p in ucn_launches.values()),
             "launches_by_path": {p: v[name] for p, v in ucn_launches.items()},
             "max_abs_err": max(r[err_key] for r in ucn_results.values()),
             "max_abs_err_of": ("gap to the fp64 argmax of the running minimum distance"
-                               if name == "fps_seeds" else "climbed seeds vs fp64"),
+                               if name == "fps_seeds" else
+                               "climbed seeds vs fp64, clustered and random rows"),
             **{k: u1[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "shapes": {k: {**{e: v for e, v in r.items() if not isinstance(v, dict)},

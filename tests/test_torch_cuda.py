@@ -23,9 +23,9 @@ from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
     tile_occupancy, unmasked_keys,
 )
 from unseenobjectswithmeanshift_torch.weights import init_random
-from unseenobjectswithmeanshift_torch.ops.mean_shift import seed_hill_climbing
+from unseenobjectswithmeanshift_torch.ops.mean_shift import first_row, seed_hill_climbing
 from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
-    fps_seeds, fps_seeds_plain, mean_shift_seeds,
+    device_limits, fps_plan, fps_seeds, fps_seeds_plain, mean_shift_seeds,
 )
 from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
     fused_masked_hypersphere_attention, fused_masked_hypersphere_attention_plain,
@@ -232,7 +232,7 @@ def test_mean_shift_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fps_seeds(X, torch.zeros(2, dtype=torch.int32), 10)
     with pytest.raises(TypeError):
         fps_seeds(X, torch.zeros(2, device=cuda), 10)
-    with pytest.raises(ValueError):                       # 4 threads a seed, 512 at most
+    with pytest.raises(ValueError):                       # a warpgroup per 64 seeds, 2 at most
         mean_shift_seeds(X, 0, 20.0, 129, 2)
 
 
@@ -476,3 +476,78 @@ def test_two_stage_tile_skip_on_cuda_matches_dense(cuda):
         out.append((net["pred_logits"], net["mask_embed"], *pred(img, xyz)))
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+def unit_rows(seed, B, N, d=64):
+    """[B, N, 64] random unit rows; 1% of the rows (at least one, N > 1)
+    copy another row: exact ties."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(B, N, d)
+    if N > 1:
+        n = max(1, N // 100)
+        X[:, rng.randint(0, N, n)] = X[:, rng.randint(0, N, n)]
+    return (X / np.linalg.norm(X, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def first_occurrences(X):
+    """[B, N] index of the first row bit-equal to each row."""
+    out = []
+    for xb in X.cpu().numpy():
+        _, first, inverse = np.unique(xb.view(np.uint32), axis=0, return_index=True,
+                                      return_inverse=True)
+        out.append(first[inverse.reshape(-1)])
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("B,N,S,first", [
+    (1, 50, 20, [3]),                         # N below the grid: one row a block
+    (64, 1, 5, [0] * 32 + [-1] * 32),         # N = 1
+    (3, 2000, 1, [5, -1, 2500]),              # S = 1: the first seed only
+    (2, 3000, 128, [0, 2999]),                # S = 128
+    (20, 5003, 30, list(range(0, 100, 5))),   # slices cross image boundaries
+    (3, 150_001, 40, [7, -3, 150_000]),       # rows in shared memory, registers, L2, device memory
+    (1, 307_200, 12, [400_000]),              # stage 1, first beyond the end
+])
+def test_fps_persistent_kernel_cases(cuda, B, N, S, first):
+    X = torch.from_numpy(unit_rows(B * N + S, B, N)).to(cuda)
+    first = torch.tensor(first, dtype=torch.int32, device=cuda)
+    plan = fps_plan(B, N, **device_limits(cuda))
+    if N == 150_001:       # the case reaches every kind of row
+        assert plan["register_rows"] > 0 and plan["l2_held_rows"] > 0
+        assert plan["streamed_rows"] > 0
+    before = fps_seeds.launches
+    seeds, idx = fps_seeds(X, first, S)
+    torch.cuda.synchronize()
+    assert fps_seeds.launches == before + 1                       # one launch a call
+    assert idx.shape == (B, S) and torch.equal(idx[:, 0], first)  # as given
+    rows = idx.long()
+    rows[:, 0] = first_row(rows[:, 0], N)
+    b = torch.arange(B, device=cuda)[:, None]
+    assert torch.equal(seeds, X[b, rows])                         # copied rows, bit for bit
+    if S > 1:
+        assert float(fps_gaps(X, rows).max()) <= FPS_TOL
+        # copies of one row have equal distances: the lowest index goes first
+        chosen = rows[:, 1:].cpu().numpy()
+        assert (np.take_along_axis(first_occurrences(X), chosen, 1) == chosen).all()
+    again = fps_seeds(X, first, S)
+    assert torch.equal(again[0], seeds) and torch.equal(again[1], idx)
+
+
+@pytest.mark.parametrize("B,N,S", [(1, 4099, 1), (2, 3001, 37), (1, 50_177, 100),
+                                   (1, 2000, 128), (20, 5003, 100)])
+@pytest.mark.parametrize("rows", ["clustered", "random"])
+def test_climb_tensor_core_kernel_cases(cuda, B, N, S, rows):
+    # N not a multiple of the 64-key tile; random rows make the TF32
+    # rounding of X visible (tests/test_torch_climb_tf32.py)
+    X_np = clustered(3 * B + S, B, N)[0] if rows == "clustered" else unit_rows(S, B, N)
+    X = torch.from_numpy(X_np).to(cuda)
+    first = torch.arange(B, dtype=torch.int32, device=cuda) * 7
+    seeds, idx = fps_seeds(X, first, S)
+    before = mean_shift_seeds.launches
+    Z, zidx = mean_shift_seeds(X, first, 20.0, S, 10)
+    torch.cuda.synchronize()
+    assert mean_shift_seeds.launches == before + 1
+    assert torch.equal(zidx, idx) and bool(torch.isfinite(Z).all())
+    want = seed_hill_climbing(X.double(), seeds.double(), 20.0, 10)
+    np.testing.assert_allclose(Z.double().cpu().numpy(), want.cpu().numpy(), atol=CLIMB_TOL)
+    assert torch.equal(mean_shift_seeds(X, first, 20.0, S, 10)[0], Z)

@@ -40,6 +40,18 @@ SIZES = [(192, 256), pytest.param((480, 640), marks=pytest.mark.skipif(
     reason="480x640 on the CPU is heavy; set UOMS_FLAGSHIP_PARITY=1"))]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """Two intra-op threads for the port's full-width run here. Tier-1 runs
+    this file beside other pytest workers on the same cores, where torch's
+    default of one spinning thread per core made it take 808 s against 83 s
+    alone; the cap is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def r5_variables():
     if not (REPO / "checkpoints" / RELEASE).is_dir():

@@ -31,17 +31,18 @@ from .mean_shift import assign_clusters, connected_components, fps_batched, seed
 
 EMBED_DIM = 64         # D in the .cu files
 MAX_SEEDS = 128        # MAX_SEEDS in mean_shift_climb.cu
-# Blocks per step over the whole batch, at most: one wave on an H100 (132
-# SMs) at 8 FPS blocks (full occupancy) or 2 climbing blocks per SM. Each
-# image takes floor(target / B) of them, so that a batch never spills a few
-# blocks into a second wave. scripts/sweep_mean_shift_blocks.py measures
-# other targets.
-FPS_BLOCKS = 1056
-FPS_ROWS_ALIGN = 16    # rows per pass of an FPS block
-CLIMB_BLOCKS = 264
-CLIMB_TILE = 64        # keys per tile (TK in mean_shift_climb.cu)
+FPS_ROWS_PER_PASS = 32  # rows a block of fps_seeds.cu takes per pass (16 lanes a row)
+FPS_REG_ROWS = 16       # REG in fps_seeds.cu: register rows a lane group holds
+FPS_RED_FLOATS = 36     # RED_FLOATS in fps_seeds.cu: the argmax scratch
+FPS_L2_BYTES = 24 << 20  # rows of X the FPS grid keeps in the L2 across steps, at most
+CLIMB_TILE = 64         # keys per tile (TK in mean_shift_climb.cu)
+# what a climbing block costs beyond its tiles (its seeds' split, its
+# partial), in tile times: ~3 from scripts/sweep_mean_shift_blocks.py (one
+# wave of 37-tile blocks against two of 19 at B=1, PERF.md)
+CLIMB_BLOCK_TILES = 3
 
 _libs: dict = {}
+_limits: dict = {}
 
 
 def _library(name: str):
@@ -51,8 +52,10 @@ def _library(name: str):
         lib = _build.load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "fps_seeds":
-            lib.uoms_fps_seeds.argtypes = [p] * 7 + [i] * 5 + [p]
+            lib.uoms_fps_seeds.argtypes = [p] * 7 + [i] * 11 + [p]
             lib.uoms_fps_seeds.restype = i
+            lib.uoms_fps_device_limits.argtypes = [p]
+            lib.uoms_fps_device_limits.restype = i
             lib.uoms_fps_error_string.argtypes = [i]
             lib.uoms_fps_error_string.restype = ctypes.c_char_p
         else:
@@ -64,6 +67,94 @@ def _library(name: str):
     return _libs[name]
 
 
+def device_limits(device) -> dict:
+    """What the launch plans need of a CUDA device, read by the FPS library:
+    SM count, the most dynamic shared memory a block may opt in to, and
+    cooperative-launch support. Raises if the device has no cooperative launch
+    (the FPS kernel needs every block resident)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _limits:
+        lib = _library("fps_seeds")
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(index):
+            rc = lib.uoms_fps_device_limits(ctypes.addressof(out))
+        if rc != 0:
+            raise RuntimeError(f"cannot read the limits of CUDA device {index}: CUDA error {rc} "
+                               f"({lib.uoms_fps_error_string(rc).decode()})")
+        if not out[2]:
+            raise RuntimeError(f"CUDA device {index} has no cooperative launch, which the "
+                               "FPS kernel needs")
+        if (out[3], out[4]) != (FPS_ROWS_PER_PASS * EMBED_DIM // 4, FPS_REG_ROWS):
+            raise RuntimeError("fps_seeds.cu and ops/mean_shift_kernels.py disagree on the "
+                               "block shape")
+        _limits[index] = {"sms": out[0], "smem_per_block": out[1]}
+    return _limits[index]
+
+
+def fps_plan(B: int, N: int, sms: int, smem_per_block: int) -> dict:
+    """Launch plan of the persistent FPS kernel (csrc/fps_seeds.cu) for X
+    [B, N, 64] on a device with `sms` SMs and `smem_per_block` bytes of
+    dynamic shared memory a block may opt in to.
+
+    The B N rows form one range cut into `grid` equal slices of
+    `rows_per_block` rows (the last may be shorter), one block per SM (the
+    plan fills a block's shared memory, so one block fits an SM, and all are
+    resident). A slice keeps, for all S steps: the running distance of every
+    row and the first `resident_rows` rows of X in shared memory, the next
+    `register_rows` rows per lane group (0, or FPS_REG_ROWS) in registers,
+    and the next `l2_rows` rows in the L2 (FPS_L2_BYTES over the grid); the
+    rest of the slice is read from device memory at every step.
+    `image_slots` is the most images a slice can touch. Raises ValueError when
+    the distances of a slice do not fit in shared memory. -> dict with those
+    keys, `smem_bytes` (the kernel's dynamic shared memory, as
+    fps_smem_bytes in the .cu file computes it), and, over all blocks, the
+    rows kept in the L2 (`l2_held_rows`) and read from device memory at
+    every step (`streamed_rows`)."""
+    if B < 1 or N < 1 or sms < 1:
+        raise ValueError(f"need B, N, sms >= 1, got {B}, {N}, {sms}")
+    total = B * N
+    if total > 2**31 - 1:
+        raise ValueError(f"B * N = {total} rows: the FPS kernel takes fewer than 2^31")
+    rows = -(-total // min(sms, total))
+    grid = -(-total // rows)
+    image_slots = (rows - 1 + N - 1) // N + 1
+    row_bytes = 4 * EMBED_DIM
+    fixed = 4 * (image_slots * EMBED_DIM + FPS_RED_FLOATS + -(-rows // 4) * 4)
+    if fixed > smem_per_block:
+        raise ValueError(f"{rows} rows a block: their running distances do not fit in "
+                         f"{smem_per_block} bytes of shared memory (B * N = {total})")
+    resident = min(rows, (smem_per_block - fixed) // row_bytes)
+    register = FPS_REG_ROWS if rows > resident else 0
+    on_chip = min(rows, resident + register * FPS_ROWS_PER_PASS)
+    l2 = min(rows - on_chip, FPS_L2_BYTES // (grid * row_bytes))
+    slices = [rows] * (grid - 1) + [total - (grid - 1) * rows]
+    off_chip = [max(0, n - on_chip) for n in slices]
+    return {"grid": grid, "rows_per_block": rows, "resident_rows": resident,
+            "register_rows": register, "l2_rows": l2, "image_slots": image_slots,
+            "smem_bytes": fixed + row_bytes * resident,
+            "l2_held_rows": sum(min(n, l2) for n in off_chip),
+            "streamed_rows": sum(max(0, n - l2) for n in off_chip)}
+
+
+def climb_plan(B: int, N: int, sms: int) -> dict:
+    """Launch plan of the hill-climbing kernel (csrc/mean_shift_climb.cu),
+    one block per SM at a time: the key splits per image (keys per split a
+    multiple of the 64-key tile) that take the least time, counted as waves
+    of `sms` blocks times the tile times of a block (its tiles plus
+    CLIMB_BLOCK_TILES), the fewest blocks on ties. -> dict with keys
+    keys_per_block and nsplit."""
+    best = None
+    for per_image in range(1, max(1, 4 * sms // B) + 1):
+        keys = -(-N // per_image)
+        keys = -(-keys // CLIMB_TILE) * CLIMB_TILE
+        nsplit = -(-N // keys)
+        cost = -(-B * nsplit // sms) * (keys // CLIMB_TILE + CLIMB_BLOCK_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, keys, nsplit)
+    return {"keys_per_block": best[1], "nsplit": best[2]}
+
+
 def _check_X(X):
     if X.device.type != "cuda":
         raise ValueError(f"X must be a CUDA tensor, got {X.device}")
@@ -73,6 +164,8 @@ def _check_X(X):
         raise ValueError(f"X must be [B, N, {EMBED_DIM}] with B, N >= 1, got {tuple(X.shape)}")
     if not X.is_contiguous():
         raise ValueError("X must be contiguous")
+    if X.data_ptr() % 16:
+        raise ValueError("X must start on a 16-byte boundary (the kernels read float4)")
 
 
 def _first_indices(first_seed_idx, B: int, device) -> torch.Tensor:
@@ -90,8 +183,9 @@ fps_seeds_plain = fps_batched
 
 
 def fps_seeds(X, first_seed_idx, num_seeds: int = 100):
-    """Farthest-point seeds: kernel on CUDA tensors, plain version on CPU
-    tensors. Counts its kernel launches in ``fps_seeds.launches``."""
+    """Farthest-point seeds: kernel on CUDA tensors (one cooperative launch
+    for the whole chain), plain version on CPU tensors. Counts its kernel
+    launches in ``fps_seeds.launches``."""
     if X.device.type == "cpu":
         return fps_seeds_plain(X, first_seed_idx, num_seeds)
     _check_X(X)
@@ -99,20 +193,21 @@ def fps_seeds(X, first_seed_idx, num_seeds: int = 100):
         raise ValueError(f"num_seeds must be >= 1, got {num_seeds}")
     B, N, d = X.shape
     first = _first_indices(first_seed_idx, B, X.device)
-    per_image = max(1, FPS_BLOCKS // B)
-    rows = -(-N // per_image)
-    rows = -(-rows // FPS_ROWS_ALIGN) * FPS_ROWS_ALIGN
-    nblk = -(-N // rows)
+    plan = fps_plan(B, N, **device_limits(X.device))
     seeds = torch.empty((B, num_seeds, d), dtype=torch.float32, device=X.device)
     indices = torch.empty((B, num_seeds), dtype=torch.int32, device=X.device)
-    dist = torch.empty((B, N), dtype=torch.float32, device=X.device)
-    pv = torch.empty((2, B, nblk), dtype=torch.float32, device=X.device)
-    pi = torch.empty((2, B, nblk), dtype=torch.int32, device=X.device)
+    pv = torch.empty((2, plan["grid"] + B), dtype=torch.float32, device=X.device)
+    pi = torch.empty((2, plan["grid"] + B), dtype=torch.int32, device=X.device)
+    count = torch.empty(1, dtype=torch.int32, device=X.device)   # zeroed by the kernel's entry
     lib = _library("fps_seeds")
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.uoms_fps_seeds(X.data_ptr(), first.data_ptr(), seeds.data_ptr(),
-                            indices.data_ptr(), dist.data_ptr(), pv.data_ptr(),
-                            pi.data_ptr(), B, N, d, num_seeds, rows, stream)
+    with torch.cuda.device(X.device):
+        rc = lib.uoms_fps_seeds(X.data_ptr(), first.data_ptr(), seeds.data_ptr(),
+                                indices.data_ptr(), pv.data_ptr(), pi.data_ptr(),
+                                count.data_ptr(), B, N, d, num_seeds, plan["grid"],
+                                plan["rows_per_block"], plan["resident_rows"],
+                                plan["register_rows"], plan["l2_rows"], plan["image_slots"],
+                                plan["smem_bytes"], stream)
     if rc != 0:
         raise RuntimeError(f"fps_seeds kernel launch failed: CUDA error {rc} "
                            f"({lib.uoms_fps_error_string(rc).decode()})")
@@ -149,15 +244,15 @@ def mean_shift_seeds(X, first_seed_idx, kappa: float = 20.0, num_seeds: int = 10
     if max_iters == 0:
         return seeds, indices
     B, N, d = X.shape
-    per_image = max(1, CLIMB_BLOCKS // B)
-    keys = -(-N // per_image)
-    keys = -(-keys // CLIMB_TILE) * CLIMB_TILE
-    nsplit = -(-N // keys)
-    partial = torch.empty((B, nsplit, num_seeds, d), dtype=torch.float32, device=X.device)
+    plan = climb_plan(B, N, device_limits(X.device)["sms"])
+    partial = torch.empty((B, plan["nsplit"], num_seeds, d), dtype=torch.float32,
+                          device=X.device)
     lib = _library("mean_shift_climb")
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.uoms_ms_climb(X.data_ptr(), seeds.data_ptr(), partial.data_ptr(), B, N, d,
-                           num_seeds, float(kappa), max_iters, keys, stream)
+    with torch.cuda.device(X.device):
+        rc = lib.uoms_ms_climb(X.data_ptr(), seeds.data_ptr(), partial.data_ptr(), B, N, d,
+                               num_seeds, float(kappa), max_iters, plan["keys_per_block"],
+                               stream)
     if rc != 0:
         raise RuntimeError(f"mean_shift_seeds kernel launch failed: CUDA error {rc} "
                            f"({lib.uoms_climb_error_string(rc).decode()})")
