@@ -73,8 +73,11 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
 10. masked_attention  the two masked-attention kernels
             (masked_hypersphere_attention, fused_masked_hypersphere_attention),
             driven once at B=1/K=307,200 and B=20/K=50,176 (H=8, Q=100, D=32,
-            E=256, guard rows present) and held to their plain versions in
-            fp64 (TOL); kernel, plain, bound and library ms.
+            E=256, guard rows present), run a second time (torch.equal) and
+            held to their plain versions in fp64 (TOL), also on ragged shapes
+            (K=777, E=20, Q=128 and Q=1); kernel, plain, library ms and the
+            bounds with the products in 3xTF32 and in fp32; the kernels'
+            ptxas registers and spills.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure ends the run with a
@@ -85,6 +88,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -836,32 +840,82 @@ def tile_skip_main_phase(results, weights=None):
     return launches
 
 
-def attention_inputs(B, K, seed=0):
+def attention_inputs(B, K, seed=0, q=Q, e=E, pos=None):
     """Seeded inputs of both masked-attention kernels on the device: qn
-    normalized, raw k and v, mask logits with rows 0-3 masked everywhere (the
-    guard), and base / pos / projections at E = 256 (pos the sine encoding of
-    the image)."""
+    normalized, raw k and v, mask logits with rows 0-3 (row 0 if q < 4)
+    masked everywhere (the guard), and base / pos / projections with e input
+    channels (pos the sine encoding of the image unless given)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
-    qn = rn(B, H, Q, D)
+    qn = rn(B, H, q, D)
     qn = qn / qn.norm(dim=-1, keepdim=True)
-    logits = rn(B, Q, K)
-    logits[:, :4] = -1.0 - logits[:, :4].abs()
-    h = 480 if K == 480 * 640 else 224
-    pos = position_embedding_sine(h, K // h, E // 2).reshape(K, E).contiguous()
-    proj = [rn(B, K, E) * 0.3, pos, rn(E, E) * 0.06, rn(E) * 0.1, rn(E, E) * 0.06,
+    logits = rn(B, q, K)
+    guard = slice(0, 4 if q > 4 else 1)
+    logits[:, guard] = -1.0 - logits[:, guard].abs()
+    if pos is None:
+        h = 480 if K == 480 * 640 else 224
+        pos = position_embedding_sine(h, K // h, E // 2).reshape(K, E).contiguous()
+    proj = [rn(B, K, e) * 0.3, pos, rn(e, E) * 0.06, rn(E) * 0.1, rn(e, E) * 0.06,
             rn(E) * 0.1]
     return qn, rn(B, H, K, D), rn(B, H, K, D), logits, proj
 
 
+# the earlier masked-attention kernels' ms (plain-FMA loops, four heads a
+# block; PERF.md section 6, kernel table, H100 80GB HBM3 at 700 W), printed
+# beside this run's
+EARLIER_MATTN_MS = {
+    "masked_hypersphere_attention": {"stage1_B1_K307200": 3.589, "crops_B20_K50176": 8.314},
+    "fused_masked_hypersphere_attention": {"stage1_B1_K307200": 13.053,
+                                           "crops_B20_K50176": 33.866}}
+MATTN_DESIGN = {
+    "masked_hypersphere_attention":
+        "count pass writes the mask words (logits read once); one block per (head, split, "
+        "image), cp.async ring of two stages of raw k, v and mask words; the split pass "
+        "normalizes k and writes k^ and v^T as K-major core matrices; S and O on wgmma in "
+        "3xTF32, P from the S accumulators",
+    "fused_masked_hypersphere_attention":
+        "the same attention as the epilogue of a k/v projection on wgmma in 3xTF32: the "
+        "head's wk | wv columns split once a call and kept in shared memory (128 KB); a "
+        "producer warpgroup fills a cp.async ring of three 32-channel stages of base and pos "
+        "behind mbarriers for two consumer warpgroups (k, v), each stage summed from zero; "
+        "k^ and v go from the accumulators to the B layouts of S and O"}
+# ragged shapes of the check: (B, Q, K, E)
+MATTN_RAGGED = {"ragged_Q128_K777_E20": (2, 128, 777, 20), "ragged_Q1_K777_E20": (2, 1, 777, 20)}
+
+
+def ptxas_report(source, kernels):
+    """{kernel: {"registers": n, "spill_bytes": stores}} from nvcc's -Xptxas=-v
+    log of csrc/<source>.cu, for the entry functions whose name holds one of
+    `kernels` (template variants kept apart by their mangled arguments)."""
+    report, name = {}, None
+    for line in _build.build_log.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            sym = line.split("'")[1]
+            k = next((k for k in kernels if k in sym), None)
+            args = re.match(r"I((?:Lb[01]E)+)E", sym[sym.index(k) + len(k):]) if k else None
+            name = k and k + (f"<{','.join(re.findall(r'Lb([01])E', args.group(1)))}>"
+                              if args else "")
+        elif name and "spill stores" in line:
+            report[name] = {"spill_bytes": int(line.split("bytes spill stores")[0].split(",")[-1])}
+        elif name and "Used" in line and "registers" in line:
+            report[name]["registers"] = int(line.split("Used ")[1].split(" registers")[0])
+    return report
+
+
 def masked_attention_phase():
     """10. both masked-attention kernels: driven once per shape (counted),
-    held to their plain versions in fp64, timed. -> ({kernel: launches},
-    {kernel: {shape: results}})."""
+    held to their plain versions in fp64 at the driven shapes and on ragged
+    ones, run twice for determinism, timed. -> ({kernel: launches},
+    {kernel: {shape: results}}, ptxas report)."""
     cases = {"stage1_B1_K307200": (1, 480 * 640), "crops_B20_K50176": (20, 224 * 224)}
     kernels = (masked_hypersphere_attention, fused_masked_hypersphere_attention)
     launches = {fn.__name__: 0 for fn in kernels}
     results = {fn.__name__: {} for fn in kernels}
+    regs = ptxas_report("masked_attention", ("mha_partial_kernel", "fused_partial_kernel"))
+    for kname, r in regs.items():
+        sync_print(f"masked_attention ptxas {kname}: registers={r.get('registers')} "
+                   f"spill_bytes={r['spill_bytes']}")
+    d = lambda t: t.double()
     for name, (B, K) in cases.items():
         qn, k, v, logits, proj = attention_inputs(B, K)
         row5 = lambda: masked_hypersphere_attention(qn, k, v, logits, k_normalized=False)
@@ -870,9 +924,9 @@ def masked_attention_phase():
             fn.launches = 0
         got5, got6 = row5(), row6()
         torch.cuda.synchronize()
-        for fn in kernels:     # the driving calls; the timing below does not count
+        for fn in kernels:     # the driving calls; the checks and timing below do not count
             launches[fn.__name__] += fn.launches
-        d = lambda t: t.double()
+        same5, same6 = torch.equal(got5, row5()), torch.equal(got6, row6())
         want5 = masked_hypersphere_attention_plain(d(qn), d(k), d(v), d(logits))
         want6 = fused_masked_hypersphere_attention_plain(d(qn), *map(d, proj), d(logits))
         guard_rows = int((logits < 0).all(-1).sum())
@@ -884,12 +938,12 @@ def masked_attention_phase():
                                                     float("-inf"))[:, None]
         sdpa = lambda: F.scaled_dot_product_attention(qn, kn, v, attn_mask=bias, scale=30.0)
         lib_err = (sdpa().double() - want5).abs().max().item()
-        for kernel, got, want, fn, plain, flops, nbytes in (
-                ("masked_hypersphere_attention", got5, want5, row5,
+        for kernel, got, want, same, fn, plain, flops, nbytes in (
+                ("masked_hypersphere_attention", got5, want5, same5, row5,
                  lambda: masked_hypersphere_attention_plain(qn, k, v, logits),
                  B * (2 * H * Q * K * D + 2 * H * Q * K * (D + 1)),
                  4 * (qn.numel() * 2 + k.numel() + v.numel() + logits.numel())),
-                ("fused_masked_hypersphere_attention", got6, want6, row6,
+                ("fused_masked_hypersphere_attention", got6, want6, same6, row6,
                  lambda: fused_masked_hypersphere_attention_plain(qn, *proj, logits),
                  B * (2 * H * Q * K * D + 2 * H * Q * K * (D + 1) + 2 * 2 * K * E * E),
                  4 * (qn.numel() * 2 + logits.numel() + sum(t.numel() for t in proj)))):
@@ -898,27 +952,52 @@ def masked_attention_phase():
             ms = time_ms(fn)
             plain_ms = time_ms(plain, warmup=1, reps=3)
             library_ms = time_ms(sdpa) if kernel == "masked_hypersphere_attention" else None
-            bound_ms, bound_by = bound(flops, nbytes)
-            results[kernel][name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                         bound_ms=bound_ms, bound_by=bound_by,
-                                         library_ms=library_ms)
+            bound_ms, bound_by = tf32x3_bound(flops, 0, nbytes)
+            bound_fp32_ms = bound(flops, nbytes)[0]
+            results[kernel][name] = dict(max_abs_err=err, deterministic=same, ms=ms,
+                                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                         bound_fp32_ms=bound_fp32_ms, library_ms=library_ms,
+                                         gflop=flops / 1e9, gbytes=nbytes / 1e9)
             sync_print(f"masked_attention {kernel} {name}: max_abs_err={err:.3e} (vs the plain "
                        f"version in fp64, tol={TOL:.0e}) finite={finite} guard_rows={guard_rows} "
-                       f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.3f} "
-                       f"({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB) "
-                       f"achieved={flops / ms / 1e9:.2f} TFLOP/s"
+                       f"two_runs_equal={same} kernel_ms={ms:.3f} (earlier kernel: "
+                       f"{EARLIER_MATTN_MS[kernel][name]:.3f}) plain_ms={plain_ms:.3f} "
+                       f"bound_ms={bound_ms:.3f} ({bound_by}; 3xTF32 products "
+                       f"{flops / 1e9:.1f} GFLOP at {PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s, "
+                       f"{nbytes / 1e9:.3f} GB) bound_fp32_ms={bound_fp32_ms:.3f} "
+                       f"achieved={flops / ms / 1e9:.2f} TFLOP/s {nbytes / ms / 1e9:.3f} TB/s"
                        + (f" library_ms={library_ms:.3f} (F.scaled_dot_product_attention on "
                           f"k normalized and the guard-corrected bias, both built outside the "
-                          f"timed call; {lib_err:.2e} from fp64)" if library_ms is not None
+                          f"timed call; {lib_err:.2e} from fp64; kernel/library "
+                          f"{ms / library_ms:.3f})" if library_ms is not None
                           else " library_ms=null (no one PyTorch call computes it)"))
-            if not (err <= TOL and finite and guard_rows > 0):
-                raise AssertionError(f"{kernel} disagrees with its plain version at {name}")
+            if not (err <= TOL and finite and guard_rows > 0 and same):
+                raise AssertionError(f"{kernel} disagrees with its plain version at {name}, "
+                                     f"or two runs differ")
         del qn, k, v, logits, proj, got5, got6, want5, want6, kn, bias
         torch.cuda.empty_cache()
     for kernel, n in launches.items():
         if n != len(cases):
             raise AssertionError(f"{kernel} launched {n} times while driven {len(cases)} times")
-    return launches, results
+    for name, (B, q, K, e) in MATTN_RAGGED.items():
+        g = torch.Generator(device="cuda").manual_seed(1)
+        qn, k, v, logits, proj = attention_inputs(
+            B, K, seed=1, q=q, e=e,
+            pos=torch.rand(K, e, generator=g, device="cuda") * 2.0 - 1.0)
+        for kernel, got, want in (
+                ("masked_hypersphere_attention",
+                 masked_hypersphere_attention(qn, k, v, logits),
+                 masked_hypersphere_attention_plain(d(qn), d(k), d(v), d(logits))),
+                ("fused_masked_hypersphere_attention",
+                 fused_masked_hypersphere_attention(qn, *proj, logits),
+                 fused_masked_hypersphere_attention_plain(d(qn), *map(d, proj), d(logits)))):
+            err = (got.double() - want).abs().max().item()
+            results[kernel][name] = dict(max_abs_err=err)
+            sync_print(f"masked_attention {kernel} {name} (B={B} Q={q} K={K} E={e}): "
+                       f"max_abs_err={err:.3e} (tol={TOL:.0e})")
+            if not (err <= TOL and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"{kernel} disagrees with its plain version at {name}")
+    return launches, results, regs
 
 
 def median_ms(fn, reps=3):
@@ -1185,7 +1264,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_done("tile_skip_main", t0)
     t0 = time.perf_counter()
-    mattn_launches, mattn_results = masked_attention_phase()
+    mattn_launches, mattn_results, mattn_regs = masked_attention_phase()
     phase_done("masked_attention", t0)
 
     s1r = results["stage1_B1_K307200"]["separable"]
@@ -1247,12 +1326,16 @@ def main(argv=None):
             "name": name,
             "route": "cuda",
             "source": "unseenobjectswithmeanshift_torch/csrc/masked_attention.cu",
+            "design": MATTN_DESIGN[name],
             "replaces": f"unseenobjectswithmeanshift_tpu/ops/pallas_attention.py:{line}",
             "launches": mattn_launches[name],
             "launches_of": "driven directly by the masked_attention phase: no model calls it",
             "max_abs_err": max(x["max_abs_err"] for x in r.values()),
             **{k: r["stage1_B1_K307200"][k]
-               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                         "bound_fp32_ms")},
+            "ptxas": {k: v for k, v in mattn_regs.items()
+                      if k.startswith("mha" if name.startswith("masked") else "fused")},
             "shapes": r,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,6 +27,7 @@ from unseenobjectswithmeanshift_torch.ops.mean_shift import first_row, seed_hill
 from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
     device_limits, fps_plan, fps_seeds, fps_seeds_plain, mean_shift_seeds,
 )
+from unseenobjectswithmeanshift_torch.ops import pallas_attention
 from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
     fused_masked_hypersphere_attention, fused_masked_hypersphere_attention_plain,
     masked_hypersphere_attention, masked_hypersphere_attention_plain,
@@ -381,19 +382,26 @@ def mha_inputs(seed, B, Q, K, H=8, D=32, guard=True):
     qn = rng.randn(B, H, Q, D).astype(np.float32)
     qn /= np.linalg.norm(qn, axis=-1, keepdims=True)
     logits = rng.randn(B, Q, K).astype(np.float32)
+    rows = [r for r in (0, 3) if r < Q]
     if guard:
-        logits[:, [0, 3]] = -1.0 - np.abs(logits[:, [0, 3]])
+        logits[:, rows] = -1.0 - np.abs(logits[:, rows])
     return qn, rng.randn(B, H, K, D).astype(np.float32), \
         rng.randn(B, H, K, D).astype(np.float32), logits
 
 
-@pytest.mark.parametrize("B,Q,K,kv_transposed", [(1, 100, 4096, False), (3, 17, 1000, True),
-                                                 (2, 128, 777, False), (2, 100, 70, True)])
-def test_masked_attention_kernel_matches_plain(cuda, B, Q, K, kv_transposed):
-    qn, k, v, logits = mha_inputs(B + K, B, Q, K)
-    if kv_transposed:
-        k, v = k.transpose(0, 1, 3, 2).copy(), v.transpose(0, 1, 3, 2).copy()
-    args = [torch.from_numpy(a).to(cuda) for a in (qn, k, v, logits)]
+def fused_args(seed, B, Q, K, E, H=8, D=32):
+    """qn, base, pos, wk, bk, wv, bv, logits for the fused kernel."""
+    rng = np.random.RandomState(seed)
+    qn, _, _, logits = mha_inputs(seed, B, Q, K, H, D)
+    f32 = np.float32
+    return [qn, rng.randn(B, K, E).astype(f32) * 0.3, rng.randn(K, E).astype(f32) * 0.3,
+            rng.randn(E, H * D).astype(f32) * 0.1, rng.randn(H * D).astype(f32) * 0.1,
+            rng.randn(E, H * D).astype(f32) * 0.1, rng.randn(H * D).astype(f32) * 0.1, logits]
+
+
+def assert_masked_attention_matches_plain(cuda, qn, k, v, logits, kv_transposed=False):
+    args = [torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in (qn, k, v, logits)]
     before = masked_hypersphere_attention.launches
     got = masked_hypersphere_attention(*args, kv_transposed=kv_transposed, k_normalized=False)
     torch.cuda.synchronize()
@@ -404,22 +412,71 @@ def test_masked_attention_kernel_matches_plain(cuda, B, Q, K, kv_transposed):
     np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(), atol=2e-5)
 
 
-@pytest.mark.parametrize("B,Q,K,E", [(1, 100, 4096, 256), (2, 16, 777, 96)])
-def test_fused_masked_attention_kernel_matches_plain(cuda, B, Q, K, E):
-    rng = np.random.RandomState(K)
-    H, D = 8, 32
-    qn, _, _, logits = mha_inputs(K, B, Q, K)
-    f32 = np.float32
-    rest = [rng.randn(B, K, E).astype(f32) * 0.3, rng.randn(K, E).astype(f32) * 0.3,
-            rng.randn(E, H * D).astype(f32) * 0.1, rng.randn(H * D).astype(f32) * 0.1,
-            rng.randn(E, H * D).astype(f32) * 0.1, rng.randn(H * D).astype(f32) * 0.1]
-    args = [torch.from_numpy(a).to(cuda) for a in [qn, *rest, logits]]
+def assert_fused_matches_plain(cuda, arrays):
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
     before = fused_masked_hypersphere_attention.launches
     got = fused_masked_hypersphere_attention(*args)
     torch.cuda.synchronize()
     assert fused_masked_hypersphere_attention.launches == before + 1
     want = fused_masked_hypersphere_attention_plain(*[a.double() for a in args])
     np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("B,Q,K,kv_transposed", [(1, 100, 4096, False), (3, 17, 1000, True),
+                                                 (2, 128, 777, False), (2, 100, 70, True),
+                                                 (1, 1, 50, False), (2, 128, 63, True)])
+def test_masked_attention_kernel_matches_plain(cuda, B, Q, K, kv_transposed):
+    qn, k, v, logits = mha_inputs(B + K, B, Q, K)
+    if kv_transposed:   # K % 4 != 0 takes the kernel's 4-byte copies
+        k, v = k.transpose(0, 1, 3, 2).copy(), v.transpose(0, 1, 3, 2).copy()
+    assert_masked_attention_matches_plain(cuda, qn, k, v, logits, kv_transposed)
+
+
+@pytest.mark.parametrize("kv_transposed", [False, True])
+def test_masked_attention_kernel_takes_unaligned_rows(cuda, kv_transposed):
+    # k and v 4 bytes past a 16-byte boundary: the kernel's 4-byte copies
+    qn, k, v, logits = mha_inputs(5, 2, 40, 300)
+    if kv_transposed:
+        k, v = k.transpose(0, 1, 3, 2).copy(), v.transpose(0, 1, 3, 2).copy()
+    shifted = []
+    for a in (k, v):
+        t = torch.empty(a.size + 1, device=cuda)[1:].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        assert t.is_contiguous() and t.data_ptr() % 16 == 4
+        shifted.append(t)
+    assert_masked_attention_matches_plain(cuda, qn, *shifted, logits, kv_transposed)
+
+
+@pytest.mark.parametrize("B,Q,K,E", [(1, 100, 4096, 256), (2, 16, 777, 96),
+                                     (2, 128, 777, 20), (1, 1, 500, 13), (3, 100, 50, 256),
+                                     (1, 100, 1000, 300), (2, 64, 129, 257)])
+def test_fused_masked_attention_kernel_matches_plain(cuda, B, Q, K, E):
+    # E = 13, 257: 4-byte copies and a zero-filled last stage; E = 300, 257:
+    # wider than the 256 channels kept on chip, the weights stream
+    assert_fused_matches_plain(cuda, fused_args(K, B, Q, K, E))
+
+
+def test_masked_attention_kernels_take_any_head_count(cuda):
+    qn, k, v, logits = mha_inputs(3, 2, 30, 500, H=3)
+    assert_masked_attention_matches_plain(cuda, qn, k, v, logits)
+    assert_fused_matches_plain(cuda, fused_args(3, 2, 30, 500, 64, H=3))
+
+
+def test_masked_attention_kernels_are_deterministic(cuda):
+    qn, k, v, logits = [torch.from_numpy(a).to(cuda) for a in mha_inputs(11, 4, 100, 20_000)]
+    first = masked_hypersphere_attention(qn, k, v, logits)
+    assert torch.equal(first, masked_hypersphere_attention(qn, k, v, logits))
+    args = [torch.from_numpy(a).to(cuda) for a in fused_args(11, 4, 100, 20_000, 256)]
+    first = fused_masked_hypersphere_attention(*args)
+    assert torch.equal(first, fused_masked_hypersphere_attention(*args))
+
+
+@pytest.mark.parametrize("E", [1, 20, 96, 256, 257, 1000])
+def test_masked_attention_shared_memory_as_planned(cuda, E):
+    # the wrapper's mirror of the kernels' shared memory equals the .cu's
+    lib = pallas_attention._library()
+    assert lib.uoms_mattn_smem_bytes(0, 0) == pallas_attention.smem_bytes(False)
+    assert lib.uoms_mattn_smem_bytes(1, E) == pallas_attention.smem_bytes(True, E)
 
 
 def test_masked_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -435,10 +492,20 @@ def test_masked_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
         masked_hypersphere_attention(qn, k.double(), v, logits)
     with pytest.raises(ValueError):                       # layout the flag does not say
         masked_hypersphere_attention(qn, k, v, logits, kv_transposed=True)
+    with pytest.raises(ValueError):                       # not contiguous
+        masked_hypersphere_attention(qn, k.transpose(2, 3), v.transpose(2, 3), logits,
+                                     kv_transposed=True)
     with pytest.raises(ValueError):
         fused_masked_hypersphere_attention(qn, torch.zeros(1, 64, 256, device=cuda),
                                            torch.zeros(64, 256, device=cuda),
                                            torch.zeros(256, 128, device=cuda),
+                                           torch.zeros(256, device=cuda),
+                                           torch.zeros(256, 256, device=cuda),
+                                           torch.zeros(256, device=cuda), logits)
+    with pytest.raises(ValueError):                       # base on the CPU
+        fused_masked_hypersphere_attention(qn, torch.zeros(1, 64, 256),
+                                           torch.zeros(64, 256, device=cuda),
+                                           torch.zeros(256, 256, device=cuda),
                                            torch.zeros(256, device=cuda),
                                            torch.zeros(256, 256, device=cuda),
                                            torch.zeros(256, device=cuda), logits)

@@ -111,9 +111,10 @@ def test_fused_masked_attention_plain_matches_jax_kernel(shape):
 
 @pytest.mark.parametrize("B,K", [(1, 307_200), (20, 50_176), (3, 100)])
 def test_launch_plan_bounds_the_split_length(B, K):
-    # the kernels' fp32 chain per thread runs over one split: at most
-    # MAX_TILES_PER_SPLIT tiles, every key in exactly one split
-    nsplit, tps = launch_plan(B, 8, K, 132, pa.MAX_TILES_PER_SPLIT)
+    # the kernels' running sums add one tile at a time over one split: at
+    # most MAX_TILES_PER_SPLIT tiles (with either kernel's resident blocks),
+    # every key in exactly one split
+    nsplit, tps = launch_plan(B, 8, K, 132, fused=False)
     ntiles = -(-K // TILE_KEYS)
     assert tps <= pa.MAX_TILES_PER_SPLIT
     assert nsplit * tps >= ntiles > (nsplit - 1) * tps

@@ -232,23 +232,31 @@ def _library():
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(B: int, H: int, K: int, sm_count: int):
-    """(nsplit, tiles_per_split) of the cross-attention: of the cuts with no
-    empty split, the one whose waves of BLOCKS_PER_SM * sm_count resident
-    blocks take the fewest tile steps (waves x tiles per split), the fewest
-    splits on a tie. A cut that leaves a wave nearly empty costs a whole
-    wave: at B=20, K=50,176 (160 blocks a split, 264 slots) two splits of 392
-    tiles take two waves, 784 steps; 28 splits of 28 tiles take 476."""
+def launch_plan(B: int, H: int, K: int, sm_count: int, blocks_per_sm: int = BLOCKS_PER_SM,
+                max_tiles: int | None = None, setup_tiles: int = 0):
+    """(nsplit, tiles_per_split) of the cross-attention (and, with their
+    arguments, of the kernels of ``ops/pallas_attention.py``): of the cuts
+    with no empty split and none longer than max_tiles, the one whose waves
+    of blocks_per_sm * sm_count resident blocks take the fewest tile steps
+    (waves x (tiles per split + setup_tiles), setup_tiles pricing a block's
+    start), the fewest splits on a tie. A cut that leaves a wave nearly
+    empty costs a whole wave: at B=20, K=50,176 (160 blocks a split, 264
+    slots) two splits of 392 tiles take two waves, 784 steps; 28 splits of
+    28 tiles take 476."""
     ntiles = -(-K // TILE_KEYS)
     blocks_per_split = B * H          # one block per (split, head, image)
-    slots = BLOCKS_PER_SM * sm_count
+    slots = blocks_per_sm * sm_count
     best = None
     for want in range(1, min(ntiles, 16 * -(-slots // blocks_per_split)) + 1):
         tiles_per_split = -(-ntiles // want)
+        if max_tiles is not None and tiles_per_split > max_tiles:
+            continue
         nsplit = -(-ntiles // tiles_per_split)
-        steps = -(-nsplit * blocks_per_split // slots) * tiles_per_split
+        steps = -(-nsplit * blocks_per_split // slots) * (tiles_per_split + setup_tiles)
         if best is None or steps < best[0]:
             best = (steps, nsplit, tiles_per_split)
+    if best is None:   # every cut of the range is longer than max_tiles
+        return -(-ntiles // max_tiles), max_tiles
     return best[1], best[2]
 
 
