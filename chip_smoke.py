@@ -78,6 +78,30 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             (K=777, E=20, Q=128 and Q=1); kernel, plain, library ms and the
             bounds with the products in 3xTF32 and in fp32; the kernels'
             ptxas registers and spills.
+11. key_stride_check  the cross-attention at the key counts of
+            decoder.key_stride 2 and 3 (B=1 K=76,800 and 34,240; B=20
+            K=12,544 and 5,625, whose last tile holds 57 keys and K % 4 = 1):
+            against fp64 in both positional forms (TOL), the mask pass alone
+            against the fp64 signs, kernel / plain / bound ms.
+12. cat_check  the FPS and climbing kernels at d = 128 (the 'cat' fusion's
+            embedding) with the gates of ucn_check at B=1/N=307,200 and
+            B=20/N=50,176, and their ms beside the bounds.
+13. presets_main  one full-width frame each of tabletop_pretrained_rgb
+            (COLOR, no xyz), tabletop_pretrained with key_stride 2 and 3, ucn_depth,
+            ucn_rgbd_early and ucn_rgbd_cat (use_pallas: climbing at d = 128),
+            launches per stage asserted; the 'cat' kernels checked again at
+            the crop count stage 2 ran.
+14. grouped_towers  the 'add' and 'cat' SEGNETs as two towers and as one
+            grouped stack: equal outputs, ms in turns at B=1 and 20 crops.
+15. stage1_no_sync  stage 1 of the MSMFormer and UCN predictors (UCN also
+            with use_pallas and with 'cat') under
+            torch.cuda.set_sync_debug_mode("error").
+16. stream_main  both predictors over 8 frames: stream (depth 1 and 2)
+            equal to __call__ (torch.equal), frames per second of each.
+17. demo_frame  the demo's per-frame function on an in-memory frame.
+18. cc_check  the connected-components kernel equal to its numpy sweep on
+            every clustering of the UCN frames of phases 7, 13 and 16; its ms
+            beside the host sweep's.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure ends the run with a
@@ -109,7 +133,10 @@ from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
     fused_masked_hypersphere_attention, fused_masked_hypersphere_attention_plain,
     masked_hypersphere_attention, masked_hypersphere_attention_plain,
 )
-from unseenobjectswithmeanshift_torch.ops.mean_shift import connected_components, seed_hill_climbing
+from unseenobjectswithmeanshift_torch.ops import mean_shift_kernels as mean_shift_kernels_module
+from unseenobjectswithmeanshift_torch.ops.mean_shift import (
+    connected_components_plain, connected_components_sweep, seed_adjacency, seed_hill_climbing,
+)
 from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
     device_limits, fps_plan, fps_seeds, fps_seeds_plain, mean_shift_seeds, mean_shift_seeds_plain,
 )
@@ -424,22 +451,26 @@ CLIMB_TOL = 2e-5
 SEEDS, ITERS, KAPPA, EPSILON, EMBED = 100, 10, 20.0, 0.04, 64
 
 
-def clustered_unit_vectors(B, N, seed=0, k=12):
-    """[B, N, 64] fp32 unit rows around k directions per image, made on the
-    device, with exact ties: 1% of the rows copy another row, and 8 isolated
+def clustered_unit_vectors(B, N, seed=0, k=12, d=EMBED):
+    """[B, N, d] fp32 unit rows around k directions per image, made on the
+    device, with the same angular spread at every d (per-dimension noise
+    0.06 sqrt(64 / d): the d = 64 rows of earlier runs, bit for bit; with
+    0.06 at d = 128 the clusters are wider, seeds climb ill-conditioned
+    ridges and the fp32 plain version itself lands 1.05e-4 from fp64 at
+    B=20, measured on the H100; PERF.md), with exact ties: 1% of the rows copy another row, and 8 isolated
     directions each sit at 3 positions, which the farthest-point chain
     reaches once it has a seed in every cluster. -> (X, first [B] int32,
     groups [8, 3] sorted positions of the isolated rows)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
     unit = lambda v: v / v.norm(dim=-1, keepdim=True)
-    centers = unit(rn(B, k, EMBED))
-    assign = torch.randint(0, k, (B, N, 1), generator=g, device="cuda").expand(B, N, EMBED)
-    X = unit(torch.gather(centers, 1, assign) + 0.06 * rn(B, N, EMBED))
+    centers = unit(rn(B, k, d))
+    assign = torch.randint(0, k, (B, N, 1), generator=g, device="cuda").expand(B, N, d)
+    X = unit(torch.gather(centers, 1, assign) + 0.06 * math.sqrt(EMBED / d) * rn(B, N, d))
     src, dst = torch.randint(0, N, (2, max(1, N // 100)), generator=g, device="cuda")
     X[:, dst] = X[:, src]
     groups = torch.randperm(N, generator=g, device="cuda")[:24].view(8, 3).sort(1).values
-    X[:, groups.flatten()] = unit(rn(B, 8, EMBED)).repeat_interleave(3, dim=1)
+    X[:, groups.flatten()] = unit(rn(B, 8, d)).repeat_interleave(3, dim=1)
     first = torch.randint(0, N, (B,), generator=g, device="cuda", dtype=torch.int32)
     return X.contiguous(), first, groups
 
@@ -502,7 +533,7 @@ def check_climb(name, X, first, seeds, idx):
     return err
 
 
-def check_climb_random(name, B, N, seed=0):
+def check_climb_random(name, B, N, seed=0, d=EMBED):
     """Hill-climbing kernel against fp64 on random unit rows, where a seed's
     own row dominates its weights: the TF32 rounding of X is not averaged
     away there, so products in plain 1xTF32 land ~1e-4 from fp64 and fail
@@ -510,7 +541,7 @@ def check_climb_random(name, B, N, seed=0):
     on clustered rows the rounding can average out). Raises on a failure.
     -> max abs error."""
     g = torch.Generator(device="cuda").manual_seed(seed + 17)
-    X = torch.randn(B, N, EMBED, generator=g, device="cuda")
+    X = torch.randn(B, N, d, generator=g, device="cuda")
     X = (X / X.norm(dim=-1, keepdim=True)).contiguous()
     first = torch.randint(0, N, (B,), generator=g, device="cuda", dtype=torch.int32)
     seeds, _ = fps_seeds(X, first, SEEDS)
@@ -524,16 +555,16 @@ def check_climb_random(name, B, N, seed=0):
     return err
 
 
-def check_mean_shift(name, B, N, seed=0):
-    X, first, groups = clustered_unit_vectors(B, N, seed)
+def check_mean_shift(name, B, N, seed=0, d=EMBED):
+    X, first, groups = clustered_unit_vectors(B, N, seed, d=d)
     seeds, idx, gap = check_fps(name, X, first, groups)
     err = check_climb(name, X, first, seeds, idx)
-    err_random = check_climb_random(name, B, N, seed)
+    err_random = check_climb_random(name, B, N, seed, d=d)
     return (X, first), {"fps_max_gap": gap, "climb_max_abs_err": max(err, err_random),
                         "climb_clustered_max_abs_err": err, "climb_random_max_abs_err": err_random}
 
 
-def mean_shift_work(B, N, climb: bool):
+def mean_shift_work(B, N, climb: bool, d=EMBED):
     """(tensor-core operations, fp32-pipe operations, bytes) of fps_seeds, or
     of mean_shift_seeds with climb=True: X and first read once, seeds and
     indices written once. FPS takes S-1 distance passes (dot, 1 - p, x 0.5,
@@ -541,27 +572,36 @@ def mean_shift_work(B, N, climb: bool):
     of products (S = Z X^T and W X, on the tensor cores in 3xTF32) and S N
     (2 + 1) more (x kappa, exp, the masking) plus S 3d for the normalization
     on the fp32 pipe."""
-    fp32 = B * (SEEDS - 1) * N * (2 * EMBED + 3)
+    fp32 = B * (SEEDS - 1) * N * (2 * d + 3)
     tc = 0
     if climb:
-        tc = B * ITERS * SEEDS * N * 4 * EMBED
-        fp32 += B * ITERS * SEEDS * (N * 2 + 3 * EMBED)
-    nbytes = B * N * EMBED * 4 + B * 4 + B * SEEDS * (EMBED + 1) * 4
+        tc = B * ITERS * SEEDS * N * 4 * d
+        fp32 += B * ITERS * SEEDS * (N * 2 + 3 * d)
+    nbytes = B * N * d * 4 + B * 4 + B * SEEDS * (d + 1) * 4
     return tc, fp32, nbytes
 
 
 def decisive_ucn_predictor(image, xyz, seed=0, **kwargs):
     """build_ucn_predictor(seed=seed, **kwargs) with random weights made
     decisive: random SEGNET embeddings share a large common component, so a
-    scene falls into one cluster. The RGB tower's fc bias of both networks
-    is shifted by minus the mean raw (pre-normalization) embedding of
-    (image, xyz), which spreads the unit embeddings over the sphere."""
+    scene falls into one cluster. The fc bias of both networks is shifted by
+    minus the mean raw (pre-normalization) embedding of (image, xyz), which
+    spreads the unit embeddings over the sphere: for 'add' fusion on the RGB
+    tower (its first half when the towers are grouped), for 'cat' on each
+    tower's own half of the channels."""
     pred = build_ucn_predictor(seed=seed, **kwargs)
+    nchw = lambda t: None if t is None else t.permute(0, 3, 1, 2)
     with torch.no_grad():
         for net in (pred.network, pred.network_crop):
-            nchw = lambda t: t.permute(0, 3, 1, 2)
-            raw = net.fcn(nchw(image)) + net.fcn_depth(nchw(xyz))
-            net.fcn.resnet34_8s.fc.bias -= raw.mean(dim=(0, 2, 3))
+            mean = net.raw_nchw(nchw(image), nchw(xyz)).mean(dim=(0, 2, 3))
+            U, fc = net.num_units, net.fcn.resnet34_8s.fc
+            if hasattr(net, "fcn_depth") and net.fusion_type == "cat":
+                fc.bias -= mean[:U]
+                net.fcn_depth.resnet34_8s.fc.bias -= mean[U:]
+            elif net.grouped and net.fusion_type == "add":
+                fc.bias[:U] -= mean
+            else:
+                fc.bias -= mean
     return pred
 
 
@@ -1076,14 +1116,16 @@ def ucn_time_phase(cases, results):
                            f"({bound_by}; 3xTF32 products {tc / 1e9:.1f} GFLOP at "
                            f"{PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s, {fp32 / 1e9:.2f} GFLOP "
                            f"fp32) bound_fp32_ms={bound_fp32_ms:.4f}")
-        # connected components: adjacency on the device, one copy to the
-        # host, the sequential sweep in numpy, labels back (host clock)
-        Z = mean_shift_seeds(X, first, KAPPA, SEEDS, ITERS)[0]
-        cc_ms = median_ms(lambda: connected_components(Z, EPSILON), reps=5)[0]
+        # connected components of the climbed seeds: the kernel (CUDA events)
+        # and the numpy sweep it replaced (host clock, one copy to the host)
+        within = seed_adjacency(mean_shift_seeds(X, first, KAPPA, SEEDS, ITERS)[0], EPSILON)
+        cc_ms = time_ms(lambda: connected_components_sweep(within))
+        host_ms = median_ms(lambda: connected_components_plain(within), reps=5)[0]
         results[name]["connected_components_ms"] = cc_ms
-        sync_print(f"ucn_time connected_components {name}: host_ms={cc_ms:.3f} "
-                   f"(components {int(connected_components(Z, EPSILON).max(1).values.max()) + 1} "
-                   "at most per image)")
+        results[name]["connected_components_host_ms"] = host_ms
+        sync_print(f"ucn_time connected_components {name}: kernel_ms={cc_ms:.4f} "
+                   f"host_sweep_ms={host_ms:.3f} (components "
+                   f"{int(connected_components_sweep(within).max()) + 1} at most per image)")
 
 
 def ucn_main_phase(results):
@@ -1101,26 +1143,31 @@ def ucn_main_phase(results):
         cfg = get_config()
         cfg.mean_shift.use_pallas = use_pallas
         pred = decisive_ucn_predictor(image, xyz, seed=0, cfg=cfg)
-        fps_seeds.launches = mean_shift_seeds.launches = fused_uoms_cross_attention.launches = 0
+        zero_counts()
         s1 = pred.stage1(image, xyz)
         torch.cuda.synchronize()
-        n1 = (fps_seeds.launches, mean_shift_seeds.launches)
+        n1 = (fps_seeds.launches, mean_shift_seeds.launches,
+              connected_components_sweep.launches)
         refined = pred.refine(s1)
         torch.cuda.synchronize()
-        n2 = (fps_seeds.launches - n1[0], mean_shift_seeds.launches - n1[1])
+        n2 = (fps_seeds.launches - n1[0], mean_shift_seeds.launches - n1[1],
+              connected_components_sweep.launches - n1[2])
         launches[path] = {"fps_seeds": fps_seeds.launches,
-                          "mean_shift_seeds": mean_shift_seeds.launches}
+                          "mean_shift_seeds": mean_shift_seeds.launches,
+                          "connected_components": connected_components_sweep.launches}
         n_crops = int(sum(int(c.present.sum()) for c in s1.crops))
         crop_counts.add(n_crops)
         labels = s1.labels
         sync_print(f"ucn_main {path}: launches fps_seeds stage1={n1[0]} stage2={n2[0]}, "
-                   f"mean_shift_seeds stage1={n1[1]} stage2={n2[1]}; present_crops={n_crops} "
+                   f"mean_shift_seeds stage1={n1[1]} stage2={n2[1]}, connected_components "
+                   f"stage1={n1[2]} stage2={n2[2]}; present_crops={n_crops} "
                    f"stage1_clusters={int(s1.n_clusters[0])} "
                    f"refined_instances={int((refined.unique() >= 1).sum())}")
         assert fused_uoms_cross_attention.launches == 0
         assert n_crops >= 1, "stage 1 gave no crop, so stage 2 did not run"
         assert n1[0] == 1 and n2[0] == 1, "the seeding kernel did not run once per stage"
         assert n1[1] == n2[1] == (1 if use_pallas else 0), "climbing kernel launches"
+        assert n1[2] == n2[2] == 1, "the connected-components kernel did not run once per stage"
         assert labels.shape == (1, 480, 640) and labels.dtype == torch.int32
         assert refined.shape == (1, 480, 640) and refined.dtype == torch.int32
         with torch.inference_mode():
@@ -1162,6 +1209,319 @@ def ucn_main_phase(results):
         results[name] = check_mean_shift(name, n, 224 * 224, seed=1)[1]
         torch.cuda.empty_cache()
     return launches
+
+
+# Row 1 at the key counts of decoder.key_stride (whole image and crops at
+# strides 2 and 3): the first K on the card that are not multiples of the
+# 64-key tile or of 4. K = 5,625 = 87 * 64 + 57 leaves 57 keys in the last
+# tile and K % 4 = 1 (the kernel's scalar copies of the ragged rows).
+KEY_STRIDE_SHAPES = {"stride2_stage1_B1_K76800": (1, 240, 320),
+                     "stride2_crops_B20_K12544": (20, 112, 112),
+                     "stride3_stage1_B1_K34240": (1, 160, 214),
+                     "stride3_crops_B20_K5625": (20, 75, 75)}
+
+
+def key_stride_check_phase():
+    """Row 1 at KEY_STRIDE_SHAPES: kernel against its plain version in fp64
+    (TOL) in both positional forms, the mask pass alone against the fp64
+    signs, then kernel, plain and bound ms. -> {case: results}."""
+    results = {}
+    for name, (B, h, w) in KEY_STRIDE_SHAPES.items():
+        K = h * w
+        r = results[name] = {"K": K, "last_tile_keys": K % TILE_KEYS or TILE_KEYS,
+                             "K_mod_4": K % 4}
+        r["max_abs_err"] = max(check_case(name, B, h, w, form=form)[2] for form in FORMS)
+        r["mask"] = check_mask_case(name, B, K)
+        torch.cuda.empty_cache()
+        args, present = make_inputs(B, h, w)
+        r["ms"] = time_ms(lambda: fused_uoms_cross_attention(*args, present=present))
+        r["plain_ms"] = time_ms(lambda: fused_uoms_cross_attention_plain(*args, present=present),
+                                warmup=1, reps=3)
+        tc, fma, nbytes = work(args, present)
+        r["bound_ms"], r["bound_by"] = tf32x3_bound(tc, fma, nbytes)
+        sync_print(f"key_stride_check {name}: K={K} last_tile_keys={r['last_tile_keys']} "
+                   f"K%4={K % 4} max_abs_err={r['max_abs_err']:.3e} kernel_ms={r['ms']:.3f} "
+                   f"plain_ms={r['plain_ms']:.3f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+        del args, present
+        torch.cuda.empty_cache()
+    return results
+
+
+def time_mean_shift(name, X, first, d, r):
+    """Kernel, plain and bound ms of both mean-shift kernels on (X, first),
+    into r[kernel]; the climbing alone is mean_shift_seeds minus fps_seeds
+    (timed in turns)."""
+    B, N, _ = X.shape
+    kernel_ms = time_in_turns({
+        "fps_seeds": lambda: fps_seeds(X, first, SEEDS),
+        "mean_shift_seeds": lambda: mean_shift_seeds(X, first, KAPPA, SEEDS, ITERS)})
+    for kernel, plain, climb in (
+            ("fps_seeds", lambda: fps_seeds_plain(X, first, SEEDS), False),
+            ("mean_shift_seeds",
+             lambda: mean_shift_seeds_plain(X, first, KAPPA, SEEDS, ITERS), True)):
+        tc, fp32, nbytes = mean_shift_work(B, N, climb, d=d)
+        bound_ms, bound_by = tf32x3_bound(tc, fp32, nbytes)
+        r[kernel] = dict(ms=kernel_ms[kernel], plain_ms=time_ms(plain, warmup=1, reps=3),
+                         bound_ms=bound_ms, bound_by=bound_by)
+    r["mean_shift_seeds"]["climb_ms"] = (r["mean_shift_seeds"]["ms"] - r["fps_seeds"]["ms"])
+    sync_print(f"time d={d} {name}: " + " ".join(
+        f"{k} kernel_ms={v['ms']:.3f} plain_ms={v['plain_ms']:.3f} bound_ms={v['bound_ms']:.4f} "
+        f"({v['bound_by']})" for k, v in r.items() if isinstance(v, dict))
+        + f" climbing_alone_ms={r['mean_shift_seeds']['climb_ms']:.3f}")
+
+
+def cat_check_phase():
+    """Rows 3-4 at d = 128 (the 'cat' embedding): the gates of ucn_check
+    (FPS per step within FPS_TOL of fp64, seeds bit-exact, ties to the
+    lowest index; the climbing within CLIMB_TOL of fp64 on clustered and on
+    random rows) at B=1/N=307,200 and B=20/N=50,176, then their times.
+    -> {case: results}."""
+    results = {}
+    for name, (B, N) in UCN_SHAPES.items():
+        (X, first), results[name] = check_mean_shift(f"d128_{name}", B, N, d=128)
+        time_mean_shift(f"d128_{name}", X, first, 128, results[name])
+        del X, first
+        torch.cuda.empty_cache()
+    return results
+
+
+class ConnectedComponentsSpy:
+    """Records every seed adjacency the UCN clustering sweeps, and the
+    labels it got, inside the `with` block (the main paths' clusterings),
+    for cc_check: it wraps the clustering's call of
+    ops.mean_shift.connected_components, and recomputes the adjacency the
+    call builds (the same op on the same seeds). Launches stay counted in
+    connected_components_sweep.launches."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = mean_shift_kernels_module.connected_components
+
+        def spy(Z, epsilon):
+            labels = self.orig(Z, epsilon)
+            self.calls.append((seed_adjacency(Z, epsilon), labels.clone()))
+            return labels
+
+        mean_shift_kernels_module.connected_components = spy
+        return self
+
+    def __exit__(self, *exc):
+        mean_shift_kernels_module.connected_components = self.orig
+
+
+def cc_check_phase(spy):
+    """The connected-components kernel against its plain numpy sweep on every
+    adjacency of the run's UCN clusterings (torch.equal), then kernel and
+    host-sweep ms at B=1 and B=20. -> results."""
+    images = sum(w.shape[0] for w, _ in spy.calls)
+    equal = all(torch.equal(lab.cpu(), connected_components_plain(w).cpu())
+                for w, lab in spy.calls)
+    comps = max(int(lab.max()) + 1 for _, lab in spy.calls) if spy.calls else 0
+    sync_print(f"cc_check: {len(spy.calls)} clusterings, {images} images, kernel equal to the "
+               f"numpy sweep={equal}, most components in an image={comps}")
+    if not spy.calls or not equal:
+        raise AssertionError("connected-components kernel disagrees with the numpy sweep "
+                             "(or the run made no UCN clustering)")
+    r = {"clusterings": len(spy.calls), "images": images, "equal": equal}
+    for B in (1, 20):
+        within = torch.cat([w for w, _ in spy.calls])[:1].expand(B, -1, -1).contiguous()
+        r[f"B{B}"] = {"ms": time_ms(lambda: connected_components_sweep(within)),
+                      "plain_ms": median_ms(lambda: connected_components_plain(within),
+                                            reps=5)[0]}
+    sync_print("cc_check: " + " ".join(f"{k} kernel_ms={v['ms']:.4f} host_sweep_ms="
+                                       f"{v['plain_ms']:.3f}" for k, v in r.items()
+                                       if isinstance(v, dict)))
+    return r
+
+
+def kernel_counts():
+    """The launch counts of every kernel wrapper on the serving paths."""
+    return {"fused_uoms_cross_attention": fused_uoms_cross_attention.launches,
+            "fps_seeds": fps_seeds.launches, "mean_shift_seeds": mean_shift_seeds.launches,
+            "connected_components": connected_components_sweep.launches}
+
+
+def zero_counts():
+    fused_uoms_cross_attention.launches = fused_uoms_cross_attention.general_pos_launches = 0
+    fps_seeds.launches = mean_shift_seeds.launches = connected_components_sweep.launches = 0
+
+
+# presets_main: one full-width frame of each configuration that the flagship
+# paths do not run, with the kernel launches each stage must make.
+PRESET_FRAMES = {   # tag: (pipeline, preset, factory kwargs, use_pallas)
+    "tabletop_pretrained_rgb": ("msmformer", "tabletop_pretrained_rgb", {"no_depth": True}, False),
+    "key_stride_2": ("msmformer", "tabletop_pretrained", {"key_stride": 2}, False),
+    "key_stride_3": ("msmformer", "tabletop_pretrained", {"key_stride": 3}, False),
+    "ucn_depth": ("ucn", "ucn_depth", {}, False),
+    "ucn_rgbd_early": ("ucn", "ucn_rgbd_early", {}, False),
+    "ucn_rgbd_cat": ("ucn", "ucn_rgbd_cat", {}, True),
+}
+
+
+def preset_predictor(kind, preset, kwargs, use_pallas, image, xyz, seed=0):
+    if kind == "msmformer":
+        return decisive_predictor(seed=seed, preset=preset, **kwargs)
+    cfg = get_config(preset)
+    cfg.mean_shift.use_pallas = use_pallas
+    return decisive_ucn_predictor(image, xyz, seed=seed, preset=preset, cfg=cfg,
+                                  cfg_crop=cfg, **kwargs)
+
+
+def presets_main_phase(results):
+    """One full-width frame of each PRESET_FRAMES entry through the
+    factories: kernel launches per stage asserted (MSMFormer 6 + 6
+    cross-attention; UCN 1 + 1 FPS and 1 + 1 connected components, and 1 + 1
+    climbing with use_pallas; nothing else), int32 [1, 480, 640] labels, >= 1
+    crop, e2e ms. The 'cat' frame's FPS and climbing (d = 128) are checked
+    and timed again at the crop count stage 2 ran. -> {tag: launches}."""
+    image, xyz = synthetic_rgbd(seed=0)
+    launches = {}
+    for tag, (kind, preset, kwargs, use_pallas) in PRESET_FRAMES.items():
+        color = kwargs.get("no_depth", False)
+        frame_xyz = None if color else xyz
+        pred = preset_predictor(kind, preset, kwargs, use_pallas, image, frame_xyz)
+        zero_counts()
+        s1 = pred.stage1(image, frame_xyz)
+        torch.cuda.synchronize()
+        n1 = kernel_counts()
+        refined = pred.refine(s1)
+        torch.cuda.synchronize()
+        n2 = {k: v - n1[k] for k, v in kernel_counts().items()}
+        launches[tag] = {k: n1[k] + n2[k] for k in n1}
+        n_crops = int(sum(int(c.present.sum()) for c in s1.crops))
+        e2e = median_ms(lambda: pred(image, frame_xyz))[0]
+        sync_print(f"presets_main {tag}: launches stage1={n1} stage2={n2} present_crops="
+                   f"{n_crops} e2e_ms={e2e:.1f}"
+                   + (f" embedding={pred.network.out_channels}" if kind == "ucn" else ""))
+        if kind == "msmformer":
+            want1 = want2 = {"fused_uoms_cross_attention": 6, "fps_seeds": 0,
+                             "mean_shift_seeds": 0, "connected_components": 0}
+        else:
+            want1 = want2 = {"fused_uoms_cross_attention": 0, "fps_seeds": 1,
+                             "mean_shift_seeds": int(use_pallas), "connected_components": 1}
+        assert n1 == want1 and n2 == want2, f"{tag}: launches {n1} + {n2}, expected {want1}"
+        assert n_crops >= 1, f"{tag}: stage 1 gave no crop, so stage 2 did not run"
+        assert s1.labels.shape == refined.shape == (1, 480, 640)
+        assert s1.labels.dtype == refined.dtype == torch.int32
+        results[tag] = {"e2e_ms": e2e, "present_crops": n_crops, "launches_stage1": n1,
+                        "launches_stage2": n2}
+        if tag == "ucn_rgbd_cat":
+            name = f"d128_stage2_B{n_crops}_N50176"
+            (X, first), results[name] = check_mean_shift(name, n_crops, 224 * 224, seed=1,
+                                                         d=128)
+            time_mean_shift(name, X, first, 128, results[name])
+            del X, first
+        del pred, s1, refined
+        torch.cuda.empty_cache()
+    return launches
+
+
+def grouped_towers_phase(results):
+    """The SEGNET of 'add' and 'cat' fusion as two towers and as one grouped
+    stack (grouped_towers, a TPU device to fill the MXU), at B=1 480x640 and
+    on 20 crops of 224^2: ms in turns, and the grouped output against the
+    two towers' (the same weights, fused)."""
+    from unseenobjectswithmeanshift_torch.models.segnet import SEGNET
+    from unseenobjectswithmeanshift_torch.weights import fuse_tower_state, init_random
+
+    image, xyz = synthetic_rgbd(seed=0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    crops = (torch.rand(20, 224, 224, 3, generator=g, device="cuda") - 0.5,
+             torch.rand(20, 224, 224, 3, generator=g, device="cuda"))
+    for fusion in ("add", "cat"):
+        two = init_random(SEGNET(64, "RGBD", fusion), torch.Generator().manual_seed(0))
+        grouped = SEGNET(64, "RGBD", fusion, grouped_towers=True)
+        grouped.load_state_dict(fuse_tower_state(two.state_dict()))
+        two, grouped = two.cuda().eval(), grouped.cuda().eval()
+        for shape, (img, dep) in (("B1_480x640", (image, xyz)), ("B20_224x224", crops)):
+            with torch.inference_mode():
+                err = (two(img, dep) - grouped(img, dep)).abs().max().item()
+                ms = time_in_turns({"two_towers": lambda: two(img, dep),
+                                    "grouped": lambda: grouped(img, dep)})
+            results[f"{fusion}_{shape}"] = {**ms, "max_abs_diff": err}
+            sync_print(f"grouped_towers {fusion} {shape}: two_towers_ms={ms['two_towers']:.3f} "
+                       f"grouped_ms={ms['grouped']:.3f} max_abs_diff={err:.3e}")
+            assert err <= 1e-4, "the grouped stack disagrees with the two towers"
+        del two, grouped
+        torch.cuda.empty_cache()
+
+
+def stage1_no_sync_phase():
+    """Stage 1 of the MSMFormer and UCN predictors (the defaults, and UCN with
+    use_pallas and with 'cat' fusion) under
+    torch.cuda.set_sync_debug_mode("error"): any host sync raises."""
+    image, xyz = synthetic_rgbd(seed=0)
+    preds = {"msmformer": decisive_predictor(seed=0),
+             "ucn": decisive_ucn_predictor(image, xyz, seed=0)}
+    for tag, preset, use_pallas in (("ucn_use_pallas", "tabletop_pretrained", True),
+                                    ("ucn_rgbd_cat", "ucn_rgbd_cat", True)):
+        preds[tag] = preset_predictor("ucn", preset, {}, use_pallas, image, xyz)
+    for pred in preds.values():          # warm-up: libraries loaded, plans cached
+        pred.stage1(image, xyz)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pred in preds.values():
+            pred.stage1(image, xyz)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sync_print(f"stage1_no_sync: stage 1 of {', '.join(preds)} queued under "
+               "set_sync_debug_mode('error') with no host sync")
+    return list(preds)
+
+
+def stream_main_phase(results, frames=8):
+    """Both predictors over `frames` full-width frames: stream with depth 1
+    and 2 gives __call__'s outputs (torch.equal), then frames per second of
+    back-to-back __call__ and of stream at both depths, timed in turns (host
+    clock around the whole run, ending in a synchronize; median of 3)."""
+    scenes = [synthetic_rgbd(seed=i) for i in range(frames)]
+    preds = {"msmformer": decisive_predictor(seed=0),
+             "ucn": decisive_ucn_predictor(*scenes[0], seed=0)}
+    for tag, pred in preds.items():
+        want = [pred(img, xyz) for img, xyz in scenes]
+        crops = sum(int(not torch.equal(l, r)) for l, r in want)
+        for depth in (1, 2):
+            got = list(pred.stream(iter(scenes), depth=depth))
+            equal = len(got) == frames and all(
+                torch.equal(gl, wl) and torch.equal(gr, wr)
+                for (gl, gr), (wl, wr) in zip(got, want))
+            if not equal:
+                raise AssertionError(f"{tag} stream(depth={depth}) differs from __call__")
+        modes = {"call": lambda: [pred(img, xyz) for img, xyz in scenes],
+                 "stream_depth1": lambda: list(pred.stream(iter(scenes), depth=1)),
+                 "stream_depth2": lambda: list(pred.stream(iter(scenes), depth=2))}
+        times = {m: [] for m in modes}
+        for _ in range(3):
+            for m, fn in modes.items():
+                times[m].append(median_ms(fn, reps=1)[0])
+        r = results[tag] = {m: {"frames_per_s": frames / statistics.median(t) * 1e3,
+                                "ms": statistics.median(t)} for m, t in times.items()}
+        sync_print(f"stream_main {tag}: outputs equal to __call__ at depth 1 and 2 "
+                   f"({crops} of {frames} frames refined); frames/s "
+                   + " ".join(f"{m}={v['frames_per_s']:.2f}" for m, v in r.items()))
+        del pred
+        preds[tag] = None
+        torch.cuda.empty_cache()
+
+
+def demo_frame_phase():
+    """The demo's per-frame function (cli.demo.label_frame) on an in-memory
+    full-width frame: the predictor's refined labels, as numpy int32."""
+    from unseenobjectswithmeanshift_torch.cli.demo import label_frame
+
+    image, xyz = synthetic_rgbd(seed=0)
+    pred = decisive_predictor(seed=0)
+    labels, ms = label_frame(pred, image[0], xyz[0])
+    want = pred(image, xyz)[1][0].cpu().numpy()
+    sync_print(f"demo_frame: label_frame {labels.shape} {labels.dtype} in {ms:.1f} ms, "
+               f"{len(set(labels.flatten().tolist())) - 1} instances, equal to the "
+               f"predictor's={bool((labels == want).all())}")
+    assert labels.shape == (480, 640) and str(labels.dtype) == "int32"
+    assert (labels == want).all()
 
 
 def main(argv=None):
@@ -1251,7 +1611,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_done("ucn_time", t0)
     t0 = time.perf_counter()
-    ucn_launches = ucn_main_phase(ucn_results)
+    cc_spy = ConnectedComponentsSpy()
+    with cc_spy:
+        ucn_launches = ucn_main_phase(ucn_results)
     phase_done("ucn_main", t0)
 
     # 8-10. tile skipping and the masked-attention kernels
@@ -1267,6 +1629,37 @@ def main(argv=None):
     mattn_launches, mattn_results, mattn_regs = masked_attention_phase()
     phase_done("masked_attention", t0)
 
+    # 11-18. the UCN-family configurations and serving entry points
+    t0 = time.perf_counter()
+    stride_results = key_stride_check_phase()
+    phase_done("key_stride_check", t0)
+    t0 = time.perf_counter()
+    cat_results = cat_check_phase()
+    phase_done("cat_check", t0)
+    t0 = time.perf_counter()
+    preset_results = {}
+    with cc_spy:
+        preset_launches = presets_main_phase(preset_results)
+    phase_done("presets_main", t0)
+    t0 = time.perf_counter()
+    grouped_results = {}
+    grouped_towers_phase(grouped_results)
+    phase_done("grouped_towers", t0)
+    t0 = time.perf_counter()
+    no_sync = stage1_no_sync_phase()
+    phase_done("stage1_no_sync", t0)
+    t0 = time.perf_counter()
+    stream_results = {}
+    with cc_spy:
+        stream_main_phase(stream_results)
+    phase_done("stream_main", t0)
+    t0 = time.perf_counter()
+    demo_frame_phase()
+    phase_done("demo_frame", t0)
+    t0 = time.perf_counter()
+    cc_results = cc_check_phase(cc_spy)
+    phase_done("cc_check", t0)
+
     s1r = results["stage1_B1_K307200"]["separable"]
     kernels = [{
         "name": "fused_uoms_cross_attention",
@@ -1280,6 +1673,9 @@ def main(argv=None):
         "ms_general_pos": results["stage1_B1_K307200"]["general"]["ms"],
         "bound_fp32_ms": s1r["bound_fp32_ms"],
         "shapes": results, "mask_checks": mask_checks,
+        "key_stride_shapes": stride_results,
+        "launches_key_stride": {k: preset_launches[k]["fused_uoms_cross_attention"]
+                                for k in ("key_stride_2", "key_stride_3")},
     }]
     u1 = ucn_results["stage1_B1_N307200"]
     for name, line, err_key, design in (
@@ -1305,7 +1701,34 @@ def main(argv=None):
             "library_ms": None,
             "shapes": {k: {**{e: v for e, v in r.items() if not isinstance(v, dict)},
                            **r.get(name, {})} for k, r in ucn_results.items()},
+            "d128_shapes": {k: {**{e: v for e, v in r.items() if not isinstance(v, dict)},
+                                **r.get(name, {})}
+                            for k, r in {**cat_results, **{
+                                k: v for k, v in preset_results.items()
+                                if k.startswith("d128_")}}.items()},
+            "launches_d128": preset_launches["ucn_rgbd_cat"][name],
         })
+    u1cc = ucn_results["stage1_B1_N307200"]
+    kernels.append({
+        "name": "connected_components",
+        "route": "cuda",
+        "source": "unseenobjectswithmeanshift_torch/csrc/connected_components.cu",
+        "replaces": "none: no TPU kernel (the JAX package runs this sweep in XLA, "
+                    "unseenobjectswithmeanshift_tpu/ops/mean_shift.py:81)",
+        "launches": sum(p["connected_components"] for p in ucn_launches.values()),
+        "launches_by_path": {p: v["connected_components"] for p, v in ucn_launches.items()},
+        "max_abs_err": 0 if cc_results["equal"] else None,
+        "max_abs_err_of": f"labels equal to the numpy sweep on {cc_results['images']} images",
+        "ms": u1cc["connected_components_ms"],
+        "plain_ms": u1cc["connected_components_host_ms"],
+        # S^2 adjacency bytes in, S labels out, a B=1 call
+        "bound_ms": (SEEDS * SEEDS + 4 * SEEDS) / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "shapes": {**{k: {"ms": r["connected_components_ms"],
+                          "plain_ms": r["connected_components_host_ms"]}
+                      for k, r in ucn_results.items() if "connected_components_ms" in r},
+                   **{k: v for k, v in cc_results.items() if isinstance(v, dict)}},
+    })
     s1k = skip_results["stage1_B1_K307200_concentrated"]
     kernels.append({
         "name": "fused_uoms_cross_attention(tile_skip=True)",
@@ -1338,6 +1761,8 @@ def main(argv=None):
                       if k.startswith("mha" if name.startswith("masked") else "fused")},
             "shapes": r,
         })
+    print(json.dumps({"presets_main": preset_results, "grouped_towers": grouped_results,
+                      "stream_main": stream_results, "stage1_no_sync": no_sync}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,14 @@
    wall time, whose difference is the device's idle share.
 3. The same for one full-width UCN two-stage inference (chip_smoke.py's UCN
    path), with the defaults and with ``mean_shift.use_pallas``.
-4. With --weights (a .npz export of one MSMFormer release,
+4. Eight full-width frames through each predictor (MSMFormer and UCN with
+   the defaults) back to back with ``__call__`` and with ``stream`` at depth
+   1 and 2: wall time, device busy time and idle share of each run.
+5. With --weights (a .npz export of one MSMFormer release,
    scripts/export_release_npz.py), the MSMFormer frame of 2. on those weights
    (paired with themselves for stage 2; on the export's rendered scene if it
    holds one), dense and with decoder.tile_skip: the cross-attention's
-   passes of each, side by side.
+   passes of each, side by side. --no-stream leaves out 4.
 
 Prints one JSON line at the end with the numbers. Imports no JAX.
 """
@@ -77,6 +80,7 @@ def profile_frame(tag, fn, result):
 def main(argv=None):
     p = argparse.ArgumentParser(description="Device-time breakdown of the port.")
     p.add_argument("--weights", help="a .npz export of one MSMFormer release")
+    p.add_argument("--no-stream", action="store_true", help="leave out the stream runs")
     opts = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -111,6 +115,17 @@ def main(argv=None):
         pred = chip_smoke.decisive_ucn_predictor(image, xyz, seed=0, cfg=cfg)
         profile_frame(tag, lambda: pred(image, xyz), result)
         del pred
+    if not opts.no_stream:
+        scenes = [chip_smoke.synthetic_rgbd(seed=i) for i in range(8)]
+        for kind in ("msmformer", "ucn"):
+            pred = (chip_smoke.decisive_predictor(seed=0) if kind == "msmformer" else
+                    chip_smoke.decisive_ucn_predictor(*scenes[0], seed=0))
+            profile_frame(f"{kind}_8_frames_call",
+                          lambda: [pred(img, xyz) for img, xyz in scenes], result)
+            for depth in (1, 2):
+                profile_frame(f"{kind}_8_frames_stream_depth{depth}",
+                              lambda: list(pred.stream(iter(scenes), depth=depth)), result)
+            del pred
     if opts.weights:
         variables = load_npz_variables(opts.weights)
         if "scene" in variables:

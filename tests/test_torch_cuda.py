@@ -132,13 +132,15 @@ def test_two_stage_on_cuda_matches_cpu(cuda):
 
 
 def clustered(seed, B, N, k=6, d=64):
-    """[B, N, 64] unit rows around k directions, 1% copied rows, and 4
+    """[B, N, d] unit rows around k directions (the per-dimension noise
+    scaled as in chip_smoke.clustered_unit_vectors), 1% copied rows, and 4
     isolated directions at 3 positions each (exact ties the farthest-point
     chain reaches). -> (X, groups [4, 3] sorted positions)."""
     rng = np.random.RandomState(seed)
     c = rng.randn(B, k, d)
     c /= np.linalg.norm(c, axis=-1, keepdims=True)
-    X = c[np.arange(B)[:, None], rng.randint(0, k, (B, N))] + 0.06 * rng.randn(B, N, d)
+    X = c[np.arange(B)[:, None], rng.randint(0, k, (B, N))] + (
+        0.06 * np.sqrt(64 / d) * rng.randn(B, N, d))
     X[:, rng.randint(0, N, N // 100)] = X[:, rng.randint(0, N, N // 100)]
     groups = np.sort(rng.choice(N, 12, replace=False).reshape(4, 3), axis=1)
     X[:, groups.reshape(-1)] = np.repeat(rng.randn(B, 4, d), 3, axis=1)
@@ -225,7 +227,7 @@ def test_mean_shift_wrappers_reject_what_the_kernels_do_not_take(cuda):
     X = torch.from_numpy(clustered(4, 2, 300)[0]).to(cuda)
     with pytest.raises(TypeError):
         fps_seeds(X.double(), 0, 10)
-    with pytest.raises(ValueError):                       # width 32: the kernels take 64
+    with pytest.raises(ValueError):                       # width 32: the kernels take 64, 128
         fps_seeds(X[..., :32].contiguous(), 0, 10)
     with pytest.raises(ValueError):
         mean_shift_seeds(X.transpose(0, 1).contiguous().transpose(0, 1), 0, 20.0, 10, 2)
@@ -618,3 +620,86 @@ def test_climb_tensor_core_kernel_cases(cuda, B, N, S, rows):
     want = seed_hill_climbing(X.double(), seeds.double(), 20.0, 10)
     np.testing.assert_allclose(Z.double().cpu().numpy(), want.cpu().numpy(), atol=CLIMB_TOL)
     assert torch.equal(mean_shift_seeds(X, first, 20.0, S, 10)[0], Z)
+
+
+# The UCN-family configurations and the serving entry points.
+
+@pytest.mark.parametrize("B,N,S", [(1, 4099, 100), (3, 1000, 37)])
+def test_d128_kernels_match_fp64(cuda, B, N, S):
+    """FPS and climbing at the 'cat' embedding's d = 128 (64 and 128 take
+    the same gates; other widths raise)."""
+    X = torch.from_numpy(clustered(11 * B, B, N, d=128)[0]).to(cuda)
+    first = torch.tensor([5, 0, N - 1][:B], dtype=torch.int32, device=cuda)
+    seeds, idx = fps_seeds(X, first, S)
+    rows = torch.arange(B, device=cuda)[:, None]
+    assert torch.equal(seeds, X[rows, idx.long()])
+    assert float(fps_gaps(X, idx).max()) <= FPS_TOL
+    Z, zidx = mean_shift_seeds(X, first, 20.0, S, 10)
+    assert torch.equal(zidx, idx)
+    want = seed_hill_climbing(X.double(), seeds.double(), 20.0, 10)
+    np.testing.assert_allclose(Z.double().cpu().numpy(), want.cpu().numpy(), atol=CLIMB_TOL)
+    with pytest.raises(ValueError):
+        fps_seeds(torch.zeros(1, 100, 96, device=cuda), 0, 10)
+
+
+@pytest.mark.parametrize("B,S", [(1, 100), (20, 100), (3, 1), (2, 128)])
+def test_connected_components_kernel_equals_the_sweep(cuda, B, S):
+    from unseenobjectswithmeanshift_torch.ops.mean_shift import (
+        connected_components_plain, connected_components_sweep, seed_adjacency,
+    )
+
+    X = torch.from_numpy(clustered(B + S, B, 3000)[0]).to(cuda)
+    Z = mean_shift_seeds(X, 0, 20.0, S, 10)[0]
+    within = seed_adjacency(Z, 0.04)
+    before = connected_components_sweep.launches
+    got = connected_components_sweep(within)
+    assert connected_components_sweep.launches == before + 1
+    assert torch.equal(got.cpu(), connected_components_plain(within).cpu())
+    with pytest.raises(ValueError):
+        connected_components_sweep(torch.ones(1, 129, 129, dtype=torch.uint8, device=cuda))
+
+
+@pytest.mark.parametrize("h,w", [(75, 75), (160, 214)])
+def test_kernel_matches_plain_at_key_stride_key_counts(cuda, h, w):
+    """K = 5,625 (57 keys in the last tile, K % 4 = 1) and 34,240."""
+    g = torch.Generator(device=cuda).manual_seed(h)
+    B, Q, H, D, C, Cm, E = 2, 100, 8, 32, 64, 256, 256
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    qn = rn(B, H, Q, D)
+    qn = qn / qn.norm(dim=-1, keepdim=True)
+    args = [qn, rn(B, C, h * w) * 0.3, torch.round(rn(B, Cm, h * w) * 2) / 4,
+            torch.round(rn(B, Q, Cm) * 3), position_embedding_sine_factors(h, w, E // 2, cuda),
+            rn(C, E) * 0.2, rn(C, E) * 0.2, rn(E, E) * 0.1, rn(E) * 0.1, rn(E) * 0.1]
+    got = fused_uoms_cross_attention(*args)
+    want = fused_uoms_cross_attention_plain(
+        *[tuple(t.double() for t in a) if isinstance(a, tuple) else a.double() for a in args])
+    np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+
+
+def test_stage1_queues_without_a_host_sync(cuda):
+    image, xyz = tabletop_scene(2)
+    image, xyz = torch.from_numpy(image).to(cuda), torch.from_numpy(xyz).to(cuda)
+    cfg = get_config()
+    cfg.mean_shift.num_seeds, cfg.test.max_instances, cfg.test.crop_size = 12, 4, 32
+    preds = [decisive_predictor(seed=0), decisive_ucn_predictor(image, xyz, seed=0, cfg=cfg)]
+    for pred in preds:
+        pred.stage1(image, xyz)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pred in preds:
+            pred.stage1(image, xyz)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_stream_on_cuda_equals_call(cuda):
+    scenes = [tuple(torch.from_numpy(a).to(cuda) for a in tabletop_scene(s)) for s in range(3)]
+    cfg = get_config()
+    cfg.mean_shift.num_seeds, cfg.test.max_instances, cfg.test.crop_size = 12, 4, 32
+    for pred in (decisive_predictor(seed=0),
+                 decisive_ucn_predictor(*scenes[0], seed=0, cfg=cfg)):
+        want = [pred(img, xyz) for img, xyz in scenes]
+        for depth in (1, 2):
+            got = list(pred.stream(iter(scenes), depth=depth))
+            assert all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))

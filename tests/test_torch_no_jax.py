@@ -1,9 +1,12 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package.
+"""The port and chip_smoke.py import neither JAX nor the JAX package, nor
+cv2 or PyYAML (the card machine has neither: the port imports them inside
+the functions that read images and YAML files).
 
 Runs in a subprocess, because tests/conftest.py imports jax into the pytest
 process. Also checks that chip_smoke.py refuses to run without CUDA.
 """
 
+import functools
 import json
 import os
 import pkgutil
@@ -27,7 +30,8 @@ import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "unseenobjectswithmeanshift_tpu"))
-print(json.dumps({"modules": names, "bad": bad}))
+lazy = sorted(k for k in sys.modules if k.split(".")[0] in ("cv2", "yaml"))
+print(json.dumps({"modules": names, "bad": bad, "lazy": lazy}))
 """
 
 
@@ -37,15 +41,28 @@ def _env():
     return env
 
 
-def test_port_and_chip_smoke_import_no_jax():
+@functools.lru_cache(maxsize=None)
+def _probe():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    result = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    result = _probe()
     expected = {m.name for m in pkgutil.walk_packages(
         unseenobjectswithmeanshift_torch.__path__, "unseenobjectswithmeanshift_torch.")}
     assert set(result["modules"]) == expected and len(expected) >= 15
     assert result["bad"] == []
+
+
+def test_port_and_chip_smoke_import_no_cv2_or_yaml():
+    result = _probe()
+    assert {"unseenobjectswithmeanshift_torch.cli.demo",
+            "unseenobjectswithmeanshift_torch.config",
+            "unseenobjectswithmeanshift_torch.utils.preprocess"} <= set(result["modules"])
+    assert result["lazy"] == []
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -3,12 +3,13 @@
 //
 // Replaces unseenobjectswithmeanshift_tpu/ops/pallas_mean_shift.py
 // fps_seeds_pallas (_fps_kernel :182). Same function as
-// ops/mean_shift.select_smart_seeds batched over images: for X [B, N, 64]
-// fp32 unit rows and a first index per image,
+// ops/mean_shift.select_smart_seeds batched over images: for X [B, N, D]
+// fp32 unit rows (D = 64, or 128 for UCN's 'cat' fusion) and a first index
+// per image,
 //   seed_0 = X[first];  dist = 0.5 (1 - X seed_0)
 //   step i = 1..S-1:  idx_i = argmax(dist) (lowest index on ties),
 //                     seed_i = X[idx_i], dist = min(dist, 0.5 (1 - X seed_i))
-// -> seeds [B, S, 64] (rows copied from X, so bit-equal to X[idx]) and
+// -> seeds [B, S, D] (rows copied from X, so bit-equal to X[idx]) and
 //    indices [B, S] int32.
 //
 // Bound. Per step 2 N d operations over N d 4 bytes of X: at N = 307,200 that
@@ -53,6 +54,10 @@
 //   block of each image writes it to `seeds`, so seeds are X[idx] bit for bit.
 //   The first index is read as jnp indexing reads X[first] (-N <= f < 0 wraps,
 //   beyond the ends clamps) and returned as given in indices[:, 0].
+// - D = 128 (the 'cat' embedding) is the same kernel with a row spread over
+//   a whole warp (32 lanes of one float4) instead of half a warp: a pass
+//   covers 16 rows instead of 32, and a block holds half as many rows on
+//   chip (shared memory and registers hold the same bytes).
 // The launch plan (rows per block, resident rows, register rows, image slots,
 // shared-memory bytes) is made by ops/mean_shift_kernels.fps_plan; the C entry
 // recomputes the bytes and refuses a plan that does not match.
@@ -64,12 +69,13 @@
 
 namespace {
 
-constexpr int D = 64;            // embedding width the kernel takes
-constexpr int THREADS = 512;     // 32 rows of 16 lanes per pass
-constexpr int LANES_PER_ROW = D / 4;
-constexpr int ROWS_PER_PASS = THREADS / LANES_PER_ROW;
+constexpr int THREADS = 512;     // D = 64: 32 rows of 16 lanes a pass; D = 128: 16 of 32
 constexpr int WARPS = THREADS / 32;
-constexpr int REG = 16;          // register rows per lane group (REG x 32 a block)
+constexpr int REG = 16;          // register rows per lane group (REG x ROWS_PER_PASS a block)
+template <int D>
+constexpr int LANES_PER_ROW = D / 4;
+template <int D>
+constexpr int ROWS_PER_PASS = THREADS / LANES_PER_ROW<D>;
 constexpr int RED_FLOATS = 2 * (WARPS + 1) + 2;   // argmax scratch, padded to 16 B
 
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
@@ -106,11 +112,12 @@ __device__ __forceinline__ float dot4(float4 x, float4 s) {
   return x.x * s.x + x.y * s.y + x.z * s.z + x.w * s.w;
 }
 
-// the 16 lanes of a row sit in one half warp: xor 8..1 stays inside it
-template <int U>
+// the lanes of a row sit in one half warp (D = 64: xor 8..1 stays inside
+// it) or fill the warp (D = 128: xor 16..1)
+template <int D, int U>
 __device__ __forceinline__ void row_sums(float (&p)[U]) {
 #pragma unroll
-  for (int off = LANES_PER_ROW / 2; off > 0; off >>= 1)
+  for (int off = LANES_PER_ROW<D> / 2; off > 0; off >>= 1)
 #pragma unroll
     for (int u = 0; u < U; ++u) p[u] += __shfl_xor_sync(0xffffffffu, p[u], off);
 }
@@ -139,23 +146,23 @@ __device__ __forceinline__ float4 ld_policy(const float* p, uint64_t policy) {
 // (DEVICE) in device memory, read under the L2 policy `policy`; U rows per
 // lane group in flight. lo and hi are block-uniform, so every lane reaches
 // every shuffle.
-template <int U, bool DEVICE>
+template <int D, int U, bool DEVICE>
 __device__ __forceinline__ void rows_pass(const float* __restrict__ src, float* dist, int lo,
                                           int hi, float4 s4, bool init, int base, int lane,
                                           int group, uint64_t policy, float& best, int& bidx) {
-  for (int r0 = lo; r0 < hi; r0 += U * ROWS_PER_PASS) {
+  for (int r0 = lo; r0 < hi; r0 += U * ROWS_PER_PASS<D>) {
     float p[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int r = r0 + u * ROWS_PER_PASS + group;
+      const int r = r0 + u * ROWS_PER_PASS<D> + group;
       const float* x = src + (size_t)r * D + 4 * lane;
       p[u] = r >= hi ? 0.f
              : dot4(DEVICE ? ld_policy(x, policy) : *reinterpret_cast<const float4*>(x), s4);
     }
-    row_sums(p);
+    row_sums<D>(p);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int r = r0 + u * ROWS_PER_PASS + group;
+      const int r = r0 + u * ROWS_PER_PASS<D> + group;
       if (r < hi && lane == 0) fold(dist, r, p[u], init, base, best, bidx);
     }
   }
@@ -180,7 +187,7 @@ __device__ __forceinline__ void grid_barrier(unsigned int* count, unsigned int t
 
 // One block per SM, THREADS threads; dynamic shared memory as fps_smem_bytes.
 // pv/pi: [2][gridDim.x + B] partials (segment blk + b); count: zeroed.
-template <int NREG>
+template <int D, int NREG>
 __global__ void __launch_bounds__(THREADS, 1) fps_persistent_kernel(
     const float* __restrict__ X, const int* __restrict__ first, float* __restrict__ seeds,
     int* __restrict__ indices, float* __restrict__ pv, int* __restrict__ pi,
@@ -193,7 +200,8 @@ __global__ void __launch_bounds__(THREADS, 1) fps_persistent_kernel(
   float* dist_s = smem + img_slots * D + RED_FLOATS;  // [rows_per_block, padded to 4]
   float* xs = dist_s + (rows_per_block + 3) / 4 * 4;  // [res][D]
 
-  const int tid = threadIdx.x, lane = tid % LANES_PER_ROW, group = tid / LANES_PER_ROW;
+  constexpr int ROWS = ROWS_PER_PASS<D>;
+  const int tid = threadIdx.x, lane = tid % LANES_PER_ROW<D>, group = tid / LANES_PER_ROW<D>;
   const int blk = blockIdx.x, nblk = gridDim.x;
   const int total = B * N;
   const int g0 = blk * rows_per_block;                 // first row of the slice
@@ -201,7 +209,7 @@ __global__ void __launch_bounds__(THREADS, 1) fps_persistent_kernel(
   const int b_lo = g0 / N;
   const int nimg = nrows > 0 ? (g0 + nrows - 1) / N - b_lo + 1 : 0;
   const float* Xs = X + (size_t)g0 * D;                // the slice's rows in X
-  const int reg_lo = min(res, nrows), reg_hi = min(res + NREG * ROWS_PER_PASS, nrows);
+  const int reg_lo = min(res, nrows), reg_hi = min(res + NREG * ROWS, nrows);
   const int l2_hi = min(reg_hi + l2_rows, nrows);      // rows kept in the L2 across steps
   uint64_t keep, stream;
   asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(keep));
@@ -215,7 +223,7 @@ __global__ void __launch_bounds__(THREADS, 1) fps_persistent_kernel(
   float4 xr[NREG > 0 ? NREG : 1];
 #pragma unroll
   for (int u = 0; u < NREG; ++u) {
-    const int r = res + u * ROWS_PER_PASS + group;
+    const int r = res + u * ROWS + group;
     xr[u] = r < reg_hi ? reinterpret_cast<const float4*>(Xs + (size_t)r * D)[lane]
                        : make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -261,7 +269,7 @@ __global__ void __launch_bounds__(THREADS, 1) fps_persistent_kernel(
       const float4 s4 = reinterpret_cast<const float4*>(seed_s + j * D)[lane];
       float best = -FLT_MAX;
       int bidx = INT_MAX;
-      rows_pass<4, false>(xs, dist_s, lo, min(hi, reg_lo), s4, init, base, lane, group, 0,
+      rows_pass<D, 4, false>(xs, dist_s, lo, min(hi, reg_lo), s4, init, base, lane, group, 0,
                           best, bidx);
       if constexpr (NREG > 0) {
         if (max(lo, reg_lo) < min(hi, reg_hi)) {   // block-uniform
@@ -270,19 +278,19 @@ __global__ void __launch_bounds__(THREADS, 1) fps_persistent_kernel(
             float p[4];
 #pragma unroll
             for (int u = 0; u < 4; ++u) p[u] = dot4(xr[u0 + u], s4);
-            row_sums(p);
+            row_sums<D>(p);
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
-              const int r = res + (u0 + u) * ROWS_PER_PASS + group;
+              const int r = res + (u0 + u) * ROWS + group;
               if (r >= lo && r < hi && r < reg_hi && lane == 0)
                 fold(dist_s, r, p[u], init, base, best, bidx);
             }
           }
         }
       }
-      rows_pass<STREAM_U, true>(Xs, dist_s, max(lo, reg_hi), min(hi, l2_hi), s4, init, base,
+      rows_pass<D, STREAM_U, true>(Xs, dist_s, max(lo, reg_hi), min(hi, l2_hi), s4, init, base,
                                 lane, group, keep, best, bidx);
-      rows_pass<STREAM_U, true>(Xs, dist_s, max(lo, l2_hi), hi, s4, init, base, lane, group,
+      rows_pass<D, STREAM_U, true>(Xs, dist_s, max(lo, l2_hi), hi, s4, init, base, lane, group,
                                 stream, best, bidx);
       block_argmax(best, bidx, red_v, red_i);
       if (tid == 0) {
@@ -301,7 +309,7 @@ __global__ void __launch_bounds__(THREADS, 1) fps_persistent_kernel(
 }
 
 // dynamic shared memory of the kernel, in bytes
-long long fps_smem_bytes(int rows_per_block, int res, int img_slots) {
+long long fps_smem_bytes(int rows_per_block, int res, int img_slots, int D) {
   return 4LL * (img_slots * D + RED_FLOATS + (rows_per_block + 3) / 4 * 4 + (long long)res * D);
 }
 
@@ -326,8 +334,8 @@ int uoms_fps_device_limits(int* out) {
   return (int)err;
 }
 
-// One cooperative launch on `stream` for the whole chain. X [B, N, 64] f32;
-// first [B] i32; seeds [B, S, 64] f32 and indices [B, S] i32 (outputs);
+// One cooperative launch on `stream` for the whole chain. X [B, N, d] f32,
+// d = 64 or 128; first [B] i32; seeds [B, S, d] f32 and indices [B, S] i32 (outputs);
 // scratch (allocated by the caller): pv [2, grid + B] f32, pi [2, grid + B]
 // i32, count [1] u32 (zeroed here). The plan: grid blocks of rows_per_block
 // rows, the first `res` of a slice in shared memory, register rows (0 or
@@ -340,13 +348,13 @@ int uoms_fps_seeds(const float* X, const int* first, float* seeds, int* indices,
                    int* pi, unsigned int* count, int B, int N, int d, int S, int grid,
                    int rows_per_block, int res, int reg_rows, int l2_rows, int img_slots,
                    int smem_bytes, void* stream) {
-  if (d != D || B < 1 || N < 1 || S < 1 || grid < 1 || rows_per_block < 1 || res < 0 ||
+  if ((d != 64 && d != 128) || B < 1 || N < 1 || S < 1 || grid < 1 || rows_per_block < 1 || res < 0 ||
       res > rows_per_block || (reg_rows != 0 && reg_rows != REG) ||
       l2_rows < 0 || img_slots < 1 ||
       (long long)B * N > INT_MAX || (long long)grid * rows_per_block < (long long)B * N ||
       (long long)(grid - 1) * rows_per_block >= (long long)B * N ||
       img_slots < (rows_per_block - 1 + N - 1) / N + 1 ||
-      fps_smem_bytes(rows_per_block, res, img_slots) != smem_bytes)
+      fps_smem_bytes(rows_per_block, res, img_slots, d) != smem_bytes)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   int limits[5];
@@ -354,8 +362,11 @@ int uoms_fps_seeds(const float* X, const int* first, float* seeds, int* indices,
   if (err != cudaSuccess) return (int)err;
   if (!limits[2]) return (int)cudaErrorNotSupported;
   if (smem_bytes > limits[1]) return (int)cudaErrorInvalidValue;
-  const void* kernel = reg_rows ? (const void*)fps_persistent_kernel<REG>
-                                : (const void*)fps_persistent_kernel<0>;
+  const void* kernel =
+      d == 64 ? (reg_rows ? (const void*)fps_persistent_kernel<64, REG>
+                          : (const void*)fps_persistent_kernel<64, 0>)
+              : (reg_rows ? (const void*)fps_persistent_kernel<128, REG>
+                          : (const void*)fps_persistent_kernel<128, 0>);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;

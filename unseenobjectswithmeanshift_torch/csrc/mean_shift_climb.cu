@@ -3,8 +3,9 @@
 // Replaces the hill-climbing phase of
 // unseenobjectswithmeanshift_tpu/ops/pallas_mean_shift.py
 // mean_shift_seeds_pallas (_kernel :42, steps S..S+max_iters-1); its seeding
-// phase is csrc/fps_seeds.cu. For X [B, N, 64] fp32 unit rows and seeds
-// Z [B, S, 64], each of `iters` steps computes
+// phase is csrc/fps_seeds.cu. For X [B, N, D] fp32 unit rows and seeds
+// Z [B, S, D], D = 64 (or 128, the 'cat' embedding, below), each of `iters`
+// steps computes
 //   Z <- normalize(exp(kappa Z X^T) X),  normalize(v) = v / max(|v|, 1e-12)
 // as ops/mean_shift.seed_hill_climbing does, without a running maximum (the
 // JAX kernel subtracts none: e^20 x 307,200 keys fits in fp32).
@@ -35,6 +36,13 @@
 //   - the tensor core adds into its accumulator by truncation, so O_tile
 //     starts from zero each tile and is added to the running partial with
 //     round-to-nearest fp32 adds (as the cross-attention does).
+// D = 128 ('cat' fusion) keeps every register array of D = 64: the two
+// warpgroups split D instead of the seeds. Each takes 64 dims of Z and X and
+// the same 64 seeds (grid (nsplit, B, ceil(S / 64))): it computes its half of
+// S = Z X^T, the halves are added through shared memory (16 KB each; both
+// warpgroups add them in the same order, so both take the same weights), and
+// each warpgroup accumulates O for its own 64 dims. The tile's X is split
+// once for both. Shared memory: 226 KB of the 227 a block may have.
 // Plain 1xTF32 or bf16 would put the climbed seeds ~1e-3 from fp64
 // (tests/test_torch_climb_tf32.py), against the 2e-5 gate of chip_smoke.py.
 //
@@ -51,40 +59,50 @@
 
 namespace {
 
-constexpr int D = 64;            // embedding width the kernel takes
 constexpr int TK = 64;           // keys per tile
-constexpr int RS = D + 4;        // raw tile row stride (floats)
 constexpr int THREADS = 256;     // two warpgroups
-constexpr int MAX_SEEDS = 128;   // one warpgroup per 64 seeds
+constexpr int MAX_SEEDS = 128;   // D = 64: one warpgroup per 64 seeds
+constexpr int WD = 64;           // dims a warpgroup takes (D = 128: half of them)
 
-// dynamic shared memory of climb_partial_kernel, in bytes: the raw ring and
-// the split layouts (hi and lo of X and of X^T)
-constexpr int SMEM_BYTES = (int)sizeof(float) * (2 * TK * RS + 4 * TK * D);
+// dynamic shared memory of climb_partial_kernel<D>, in bytes: the raw ring,
+// the split layouts (hi and lo of X and of X^T) and, at D = 128, the two
+// warpgroups' halves of S
+template <int D>
+constexpr int SMEM_BYTES = (int)sizeof(float) *
+                           (2 * TK * (D + 4) + 4 * TK * D + (D == 128 ? 2 * 64 * TK : 0));
 
-// grid (nsplit, B); partial [B, nsplit, S, 64].
+// grid (nsplit, B, 1) at D = 64, (nsplit, B, ceil(S / 64)) at D = 128;
+// partial [B, nsplit, S, D].
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1) climb_partial_kernel(
     const float* __restrict__ X, const float* __restrict__ Z, float* __restrict__ partial,
     int N, int S, int keys_per_block, float c_log2) {
+  constexpr int RS = D + 4;               // raw tile row stride (floats)
+  constexpr bool SPLIT_D = D == 128;      // the warpgroups split D, not the seeds
   extern __shared__ __align__(128) float smem[];
   float* raw = smem;                 // [2][TK][RS]
   float* xk_hi = raw + 2 * TK * RS;  // [TK keys][K = D]
   float* xk_lo = xk_hi + TK * D;
   float* xt_hi = xk_lo + TK * D;     // [D][K = TK keys, permuted]
   float* xt_lo = xt_hi + TK * D;
+  float* ex = xt_lo + TK * D;        // D = 128: [2 warpgroups][32 values][128 threads]
   const int split = blockIdx.x, b = blockIdx.y, nsplit = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, tg = lane & 3;
+  const int wg = tid >> 7;
   const int wr = ((tid >> 5) & 3) * 16;   // this warp's 16 rows of the warpgroup's 64
-  const int s0 = (tid >> 7) * 64;         // seeds s0 .. s0 + 63 of this warpgroup
-  const bool active = s0 < S;             // warpgroup-uniform
+  // seeds s0 .. s0 + 63 and dims dw .. dw + WD - 1 of this warpgroup
+  const int s0 = SPLIT_D ? blockIdx.z * 64 : wg * 64;
+  const int dw = SPLIT_D ? wg * WD : 0;
+  const bool active = SPLIT_D || s0 < S;  // warpgroup-uniform (block-uniform at D = 128)
 
-  // this warp's seeds, split once: A fragments of S = Z X^T
-  uint32_t zh[D / 8][4], zl[D / 8][4];
+  // this warp's seeds, split once: A fragments of S = Z X^T (its dims)
+  uint32_t zh[WD / 8][4], zl[WD / 8][4];
   {
     const float* zs = Z + (size_t)b * S * D;
     const int r0 = s0 + wr + g, r1 = r0 + 8;
 #pragma unroll
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const int d0 = ks * 8 + tg;
+    for (int ks = 0; ks < WD / 8; ++ks) {
+      const int d0 = dw + ks * 8 + tg;
       split_tf32(r0 < S ? zs[r0 * D + d0] : 0.f, zh[ks][0], zl[ks][0]);
       split_tf32(r1 < S ? zs[r1 * D + d0] : 0.f, zh[ks][1], zl[ks][1]);
       split_tf32(r0 < S ? zs[r0 * D + d0 + 4] : 0.f, zh[ks][2], zl[ks][2]);
@@ -163,12 +181,28 @@ __global__ void __launch_bounds__(THREADS, 1) climb_partial_kernel(
 #pragma unroll
       for (int hk = 0; hk < 2; ++hk) {
 #pragma unroll
-        for (int ks = 0; ks < D / 8; ++ks)
-          wgmma_3xtf32(sc[hk], zh[ks], zl[ks],
-                       smem_desc(xk_hi + (hk * 4 * (D / 4) + 2 * ks) * 32, 128, (D / 4) * 128),
-                       smem_desc(xk_lo + (hk * 4 * (D / 4) + 2 * ks) * 32, 128, (D / 4) * 128),
-                       ks == 0);
+        for (int ks = 0; ks < WD / 8; ++ks) {
+          const int kc = hk * 4 * (D / 4) + 2 * (dw / 8 + ks);   // core matrix of (keys, dims)
+          wgmma_3xtf32(sc[hk], zh[ks], zl[ks], smem_desc(xk_hi + kc * 32, 128, (D / 4) * 128),
+                       smem_desc(xk_lo + kc * 32, 128, (D / 4) * 128), ks == 0);
+        }
         wg_commit();
+      }
+      if constexpr (SPLIT_D) {
+        // S = the two warpgroups' halves, added in the same order by both
+        wg_wait<0>();
+        wg_pin(sc[0]);
+        wg_pin(sc[1]);
+        float* mine = ex + wg * 32 * 128 + (tid & 127);
+        const float* other = ex + (1 - wg) * 32 * 128 + (tid & 127);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) mine[i * 128] = sc[i >> 4][i & 15];
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float o_ = other[i * 128];
+          sc[i >> 4][i & 15] = wg == 0 ? sc[i >> 4][i & 15] + o_ : o_ + sc[i >> 4][i & 15];
+        }
       }
       uint32_t ah[2][4], al[2][4];
       wg_pin(acc);
@@ -195,8 +229,9 @@ __global__ void __launch_bounds__(THREADS, 1) climb_partial_kernel(
           split_tf32(sc[hk][4 * j + 1], ah[ab][2], al[ab][2]);
           split_tf32(sc[hk][4 * j + 3], ah[ab][3], al[ab][3]);
           wg_fence();
-          wgmma_3xtf32(acc, ah[ab], al[ab], smem_desc(xt_hi + 2 * kt * 32, 128, (TK / 4) * 128),
-                       smem_desc(xt_lo + 2 * kt * 32, 128, (TK / 4) * 128), kt == 0);
+          const int kc = (dw / 8) * (TK / 4) + 2 * kt;   // core matrix of (dims, keys)
+          wgmma_3xtf32(acc, ah[ab], al[ab], smem_desc(xt_hi + kc * 32, 128, (TK / 4) * 128),
+                       smem_desc(xt_lo + kc * 32, 128, (TK / 4) * 128), kt == 0);
           wg_commit();
         }
       }
@@ -215,15 +250,16 @@ __global__ void __launch_bounds__(THREADS, 1) climb_partial_kernel(
       if (s < S) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<float2*>(pb + (size_t)s * D + 8 * j + 2 * tg) =
+          *reinterpret_cast<float2*>(pb + (size_t)s * D + dw + 8 * j + 2 * tg) =
               make_float2(o[4 * j + 2 * rr], o[4 * j + 2 * rr + 1]);
       }
     }
   }
 }
 
-// grid (S, B), 64 threads: Z[b, s] = sum_split partial / max(|sum|, 1e-12),
+// grid (S, B), D threads: Z[b, s] = sum_split partial / max(|sum|, 1e-12),
 // summed in split order; the norm's sum of squares by a fixed tree.
+template <int D>
 __global__ void __launch_bounds__(D) climb_normalize_kernel(
     const float* __restrict__ partial, float* __restrict__ Z, int S, int nsplit) {
   __shared__ float warp_sums[D / 32];
@@ -252,38 +288,48 @@ __global__ void __launch_bounds__(D) climb_normalize_kernel(
   Z[((size_t)b * S + s) * D + d] = sum / fmaxf(sqrtf(total), 1e-12f);
 }
 
+template <int D>
+int climb(const float* X, float* Z, float* partial, int B, int N, int S, float kappa, int iters,
+          int keys_per_block, cudaStream_t st) {
+  const int nsplit = (N + keys_per_block - 1) / keys_per_block;
+  cudaError_t err = cudaFuncSetAttribute(climb_partial_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_BYTES<D>);
+  if (err != cudaSuccess) return (int)err;
+  const float c_log2 = kappa * 1.4426950408889634f;
+  const dim3 grid(nsplit, B, D == 128 ? (S + 63) / 64 : 1);
+  for (int it = 0; it < iters; ++it) {
+    climb_partial_kernel<D><<<grid, THREADS, SMEM_BYTES<D>, st>>>(X, Z, partial, N, S,
+                                                                 keys_per_block, c_log2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    climb_normalize_kernel<D><<<dim3(S, B), D, 0, st>>>(partial, Z, S, nsplit);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* uoms_climb_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Queues `iters` steps (two launches each) on `stream`, updating Z [B, S, 64]
-// f32 in place. X [B, N, 64] f32 with rows 16-byte aligned; scratch partial
-// [B, nsplit, S, 64] f32 (allocated by the caller), nsplit = ceil(N /
-// keys_per_block), keys_per_block a multiple of 64.
+// Queues `iters` steps (two launches each) on `stream`, updating Z [B, S, d]
+// f32 in place, d = 64 or 128. X [B, N, d] f32 with rows 16-byte aligned;
+// scratch partial [B, nsplit, S, d] f32 (allocated by the caller), nsplit =
+// ceil(N / keys_per_block), keys_per_block a multiple of 64.
 // Returns cudaGetLastError() of the first launch that fails, else of the last.
 int uoms_ms_climb(const float* X, float* Z, float* partial, int B, int N, int d, int S,
                   float kappa, int iters, int keys_per_block, void* stream) {
-  if (d != D || B < 1 || N < 1 || S < 1 || S > MAX_SEEDS || iters < 0 || keys_per_block < 1 ||
-      keys_per_block % TK != 0 || B > 65535 || (reinterpret_cast<uintptr_t>(X) & 15u) != 0)
+  if ((d != 64 && d != 128) || B < 1 || N < 1 || S < 1 || S > MAX_SEEDS || iters < 0 ||
+      keys_per_block < 1 || keys_per_block % TK != 0 || B > 65535 ||
+      (reinterpret_cast<uintptr_t>(X) & 15u) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int nsplit = (N + keys_per_block - 1) / keys_per_block;
-  cudaError_t err = cudaFuncSetAttribute(climb_partial_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const float c_log2 = kappa * 1.4426950408889634f;
-  for (int it = 0; it < iters; ++it) {
-    climb_partial_kernel<<<dim3(nsplit, B), THREADS, SMEM_BYTES, st>>>(X, Z, partial, N, S,
-                                                                       keys_per_block, c_log2);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    climb_normalize_kernel<<<dim3(S, B), D, 0, st>>>(partial, Z, S, nsplit);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+  return d == 64 ? climb<64>(X, Z, partial, B, N, S, kappa, iters, keys_per_block, st)
+                 : climb<128>(X, Z, partial, B, N, S, kappa, iters, keys_per_block, st);
 }
 
 }  // extern "C"

@@ -10,9 +10,15 @@ package takes on the TPU. Per layer (post-norm, no dropout):
                    (tile_skip: skipping the key tiles no query attends to)
   self-attention:  vMF attention among the queries (plain PyTorch)
   FFN:             256 -> 2048 -> 256, relu
-  decoder_block_norm: L2-normalize the query features
+  decoder_block_norm: L2-normalize the query features (when set)
   heads:           class logits and mask embed (decoder_norm, class_embed,
                    mask_embed MLP)
+
+``key_stride`` s > 1 (an opt-in for serving, :323-369 and :416-419): the
+cross-attention's keys are the strided subsample [::s, ::s] of the
+full-resolution map, each with the feature and the positional encoding it has
+at stride 1 (the sine factors are computed at the full size, then strided);
+the masks stay full resolution.
 
 ``input_proj`` and ``level_embed`` are folded into the cross-attention's k/v
 projections (:91-104): the kernel streams the 64-channel map, never a 256-d
@@ -117,18 +123,26 @@ class MLP(nn.Module):
 class MeanShiftDecoder(nn.Module):
     def __init__(self, num_classes=2, hidden_dim=256, num_queries=100, nheads=8,
                  dim_feedforward=2048, dec_layers=6, mask_dim=256, in_channels=64,
-                 kappa=30.0, tile_skip=False, tile_skip_force_all=False):
+                 kappa=30.0, tile_skip=False, tile_skip_force_all=False,
+                 key_stride: int = 1, decoder_block_norm: bool = True):
         super().__init__()
         E, Q = hidden_dim, num_queries
         self.E, self.nheads, self.L = E, nheads, dec_layers
         self.tile_skip, self.tile_skip_force_all = tile_skip, tile_skip_force_all
+        if key_stride < 1:
+            raise ValueError(f"key_stride must be >= 1, got {key_stride}")
+        self.key_stride, self.block_norm = key_stride, decoder_block_norm
         self.query_feat = nn.Embedding(Q, E)
         self.query_embed = nn.Embedding(Q, E)
         self.level_embed = nn.Embedding(1, E)
-        # the reference projects only when in_channels != hidden_dim; the
-        # UCN configurations (64 -> 256) always do
+        # the reference projects when in_channels != hidden_dim or
+        # decoder.enforce_input_project; the UCN configurations (64 -> 256)
+        # always do, so enforce_input_project changes nothing here. Without
+        # a projection the kernel would stream hidden_dim channels.
         if in_channels == E:
-            raise ValueError("the port's decoder takes in_channels != hidden_dim")
+            raise ValueError(f"in_channels == hidden_dim ({E}): the decoder without an input "
+                             "projection is not ported (ROADMAP queue 1 item 10, the "
+                             "standard-backbone family)")
         self.input_proj = nn.ModuleList([nn.Conv2d(in_channels, E, 1)])
         self.transformer_cross_attention_layers = nn.ModuleList(
             _CrossLayer(E, nheads, kappa) for _ in range(dec_layers))
@@ -149,12 +163,25 @@ class MeanShiftDecoder(nn.Module):
         in the JAX package; NCHW-contiguous storage is used without a copy).
         Returns pred_logits [B, Q, classes+1], mask_embed [B, Q, Cm],
         aux_outputs (per-layer pred_logits) and, when materialize_masks,
-        pred_masks [B, Q, h, w]."""
+        pred_masks [B, Q, h, w] (full resolution at any key_stride)."""
         B, h, w, _ = x.shape
-        E = self.E
-        featT = x.permute(0, 3, 1, 2).reshape(B, -1, h * w).contiguous()
+        E, s = self.E, self.key_stride
         mfT = mask_features.permute(0, 3, 1, 2).reshape(B, -1, h * w).contiguous()
-        pos = position_embedding_sine_factors(h, w, E // 2, device=x.device)
+        pos_y, pos_x = position_embedding_sine_factors(h, w, E // 2, device=x.device)
+        if s > 1:
+            x, mf_keys = x[:, ::s, ::s], mask_features[:, ::s, ::s]
+            if mf_keys.shape[1:3] != x.shape[1:3]:
+                raise ValueError(f"key_stride={s}: strided mask_features "
+                                 f"{tuple(mf_keys.shape[1:3])} do not match the strided "
+                                 f"feature level {tuple(x.shape[1:3])}; key_stride requires "
+                                 "mask_features at the feature-map resolution")
+            pos_y, pos_x = pos_y[:, ::s].contiguous(), pos_x[:, ::s].contiguous()
+            hk, wk = x.shape[1], x.shape[2]
+            mfT_keys = mf_keys.permute(0, 3, 1, 2).reshape(B, -1, hk * wk).contiguous()
+        else:
+            hk, wk, mfT_keys = h, w, mfT
+        featT = x.permute(0, 3, 1, 2).reshape(B, -1, hk * wk).contiguous()
+        pos = (pos_y, pos_x)
         proj = self.input_proj[0]
         win = proj.weight[:, :, 0, 0].T
         cin = proj.bias + self.level_embed.weight[0]
@@ -166,13 +193,14 @@ class MeanShiftDecoder(nn.Module):
         for i in range(self.L):
             ca = self.transformer_cross_attention_layers[i]
             output = ca.norm(output + ca.meanshift_attn.fused_cross(
-                output + qpos, featT, mfT, me, pos, win, cin, self.tile_skip,
+                output + qpos, featT, mfT_keys, me, pos, win, cin, self.tile_skip,
                 self.tile_skip_force_all))
             sa = self.transformer_self_attention_layers[i]
             qk = output + qpos
             output = sa.norm(output + sa.self_attn(qk, qk, output))
             output = self.transformer_ffn_layers[i](output)
-            output = l2_normalize(output, dim=-1)        # decoder_block_norm
+            if self.block_norm:
+                output = l2_normalize(output, dim=-1)
             cls, me = self._heads(output)
             aux.append(cls)
         out = {"pred_logits": cls, "mask_embed": me,

@@ -9,7 +9,9 @@ input size. BatchNorm runs on its running statistics (eval mode, eps 1e-5).
 
 Submodule names follow the reference checkpoint keys
 (``conv1``, ``bn1``, ``layer{1-4}.{b}.{conv1,bn1,conv2,bn2,downsample.{0,1}}``,
-``fc``).
+``fc``). ``groups=2`` stacks two towers along the channel axis (the JAX
+package's ``feature_group_count``): every conv is grouped, BatchNorm is per
+channel, so each half of the channels is one tower (SEGNET.grouped_towers).
 """
 
 from __future__ import annotations
@@ -45,17 +47,18 @@ def _plan_stages(layers: Sequence[int], block_expansion: int, output_stride: int
 
 class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, has_downsample: bool = False):
+                 dilation: int = 1, has_downsample: bool = False, groups: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, padding=dilation,
-                               dilation=dilation, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, padding=dilation,
-                               dilation=dilation, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        g = groups
+        self.conv1 = nn.Conv2d(inplanes * g, planes * g, 3, stride, padding=dilation,
+                               dilation=dilation, bias=False, groups=g)
+        self.bn1 = nn.BatchNorm2d(planes * g)
+        self.conv2 = nn.Conv2d(planes * g, planes * g, 3, 1, padding=dilation,
+                               dilation=dilation, bias=False, groups=g)
+        self.bn2 = nn.BatchNorm2d(planes * g)
         self.downsample = (nn.Sequential(
-            nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-            nn.BatchNorm2d(planes)) if has_downsample else None)
+            nn.Conv2d(inplanes * g, planes * g, 1, stride, bias=False, groups=g),
+            nn.BatchNorm2d(planes * g)) if has_downsample else None)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -65,21 +68,23 @@ class BasicBlock(nn.Module):
 
 
 class DilatedResNetFCN(nn.Module):
-    """ResNet-N s-FCN with basic blocks: [B, in_ch, H, W] -> [B, num_units, H, W]."""
+    """ResNet-N s-FCN with basic blocks: [B, groups * in_ch, H, W] ->
+    [B, groups * num_units, H, W] (in_ch per tower)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), num_units: int = 64,
-                 output_stride: int = 8, in_ch: int = 3):
+                 output_stride: int = 8, in_ch: int = 3, groups: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        g = groups
+        self.conv1 = nn.Conv2d(in_ch * g, 64 * g, 7, 2, 3, bias=False, groups=g)
+        self.bn1 = nn.BatchNorm2d(64 * g)
         cin = 64
         for si, blocks in enumerate(_plan_stages(layers, 1, output_stride)):
             mods = []
             for planes, stride, dilation, has_ds in blocks:
-                mods.append(BasicBlock(cin, planes, stride, dilation, has_ds))
+                mods.append(BasicBlock(cin, planes, stride, dilation, has_ds, g))
                 cin = planes
             setattr(self, f"layer{si + 1}", nn.Sequential(*mods))
-        self.fc = nn.Conv2d(cin, num_units, 1)
+        self.fc = nn.Conv2d(cin * g, num_units * g, 1, groups=g)
 
     def forward(self, x):
         hw = x.shape[-2:]
@@ -90,6 +95,7 @@ class DilatedResNetFCN(nn.Module):
         return F.interpolate(x, size=hw, mode="bilinear", align_corners=True)
 
 
-def resnet34_8s(num_units: int = 64) -> DilatedResNetFCN:
-    """ref: lib/networks/resnet_dilated.py Resnet34_8s."""
-    return DilatedResNetFCN((3, 4, 6, 3), num_units, 8)
+def resnet34_8s(num_units: int = 64, in_channels: int = 3, groups: int = 1) -> DilatedResNetFCN:
+    """ref: lib/networks/resnet_dilated.py Resnet34_8s. in_channels=6 takes
+    'early' fusion's RGB | XYZ input; groups=2 stacks two towers."""
+    return DilatedResNetFCN((3, 4, 6, 3), num_units, 8, in_channels, groups)

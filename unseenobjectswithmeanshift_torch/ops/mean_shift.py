@@ -6,7 +6,9 @@ lib/fcn/test_dataset.py:44-59), cosine metric only:
 
 - farthest-point ("smart") seed selection, ``select_smart_seeds``
 - seed hill climbing Z <- normalize(exp(kappa Z X^T) X), ``seed_hill_climbing``
-- connected components of the seeds at cosine distance <= epsilon
+- connected components of the seeds at cosine distance <= epsilon (the
+  sweep on the CUDA kernel ``csrc/connected_components.cu`` for a CUDA
+  tensor, the numpy sweep for a CPU one)
 - assignment of every point to its closest seed, largest cluster relabeled 0
 
 These are the plain versions the CUDA kernels of ``ops/mean_shift_kernels.py``
@@ -101,6 +103,74 @@ def _sweep(within: np.ndarray) -> np.ndarray:
     return labels
 
 
+def seed_adjacency(Z, epsilon: float):
+    """[..., S, S] uint8: 1 where two seeds lie within epsilon (cosine
+    distance), computed on Z's device."""
+    return (cosine_distance(Z, Z) <= epsilon).to(torch.uint8)
+
+
+def connected_components_plain(within):
+    """The numpy sweep over every [S, S] adjacency of ``within`` [..., S, S]
+    (the kernel's plain twin). -> int32 labels [..., S] on within's device;
+    a CUDA ``within`` is copied to the host once (one sync)."""
+    w = within.cpu().numpy().astype(bool)
+    flat = w.reshape(-1, *w.shape[-2:])
+    labels = np.stack([_sweep(x) for x in flat]).reshape(w.shape[:-1])
+    return torch.from_numpy(labels).to(within.device)
+
+
+MAX_CC_SEEDS = 128    # MAX_SEEDS in csrc/connected_components.cu
+_cc_lib = None
+
+
+def _cc_library():
+    global _cc_lib
+    if _cc_lib is None:
+        import ctypes
+
+        from . import _build
+
+        lib = _build.load("connected_components")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.uoms_connected_components.argtypes = [p, p, i, i, p]
+        lib.uoms_connected_components.restype = i
+        lib.uoms_cc_error_string.argtypes = [i]
+        lib.uoms_cc_error_string.restype = ctypes.c_char_p
+        _cc_lib = lib
+    return _cc_lib
+
+
+def connected_components_sweep(within):
+    """Labels of the sweep over ``within`` [B, S, S] uint8: the CUDA kernel
+    (``csrc/connected_components.cu``, one block per image, no host sync) on
+    a CUDA tensor, counted in ``connected_components_sweep.launches``; the
+    numpy sweep on a CPU tensor. -> [B, S] int32."""
+    if within.device.type == "cpu":
+        return connected_components_plain(within)
+    if within.dtype != torch.uint8 or within.dim() != 3 or within.shape[1] != within.shape[2]:
+        raise ValueError(f"within must be [B, S, S] uint8, got {tuple(within.shape)} "
+                         f"{within.dtype}")
+    B, S, _ = within.shape
+    if not 1 <= S <= MAX_CC_SEEDS or B < 1:
+        raise ValueError(f"the connected-components kernel takes 1 <= S <= {MAX_CC_SEEDS} "
+                         f"and B >= 1, got B={B}, S={S}")
+    within = within.contiguous()
+    labels = torch.empty((B, S), dtype=torch.int32, device=within.device)
+    lib = _cc_library()
+    with torch.cuda.device(within.device):
+        rc = lib.uoms_connected_components(
+            within.data_ptr(), labels.data_ptr(), B, S,
+            torch.cuda.current_stream(within.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"connected_components kernel launch failed: CUDA error {rc} "
+                           f"({lib.uoms_cc_error_string(rc).decode()})")
+    connected_components_sweep.launches += 1
+    return labels
+
+
+connected_components_sweep.launches = 0
+
+
 def connected_components(Z, epsilon: float):
     """Label seeds whose pairwise cosine distance <= epsilon into components
     (ref: connected_components, mean_shift.py:41-76): for each unlabeled seed
@@ -108,13 +178,12 @@ def connected_components(Z, epsilon: float):
     to the smallest), or a new label if none has one.
 
     Z [..., S, d] -> int32 labels [..., S] in [0, S), on Z's device. The
-    adjacency is computed on Z's device and copied to the host once per call
-    (one sync for the whole batch); the sweep, 100 steps with a
-    data-dependent branch, runs in numpy."""
-    within = (cosine_distance(Z, Z) <= epsilon).cpu().numpy()
-    flat = within.reshape(-1, *within.shape[-2:])
-    labels = np.stack([_sweep(w) for w in flat]).reshape(within.shape[:-1])
-    return torch.from_numpy(labels).to(Z.device)
+    adjacency is computed on Z's device; the sweep runs on the kernel for a
+    CUDA Z (no host sync) and in numpy for a CPU one."""
+    within = seed_adjacency(Z, epsilon)
+    lead = within.shape[:-2]
+    S = within.shape[-1]
+    return connected_components_sweep(within.reshape(-1, S, S)).reshape(*lead, S)
 
 
 def assign_clusters(X, Z, seed_labels):

@@ -16,9 +16,10 @@ On a CPU tensor every function runs the plain PyTorch version
 There is no other fallback. Each kernel wrapper counts its launches in
 ``.launches``.
 
-X is [B, N, 64] fp32 (unit rows), first_seed_idx an int or a [B] integer
-tensor, read as the JAX package's ``X[first_seed_idx]`` reads it
-(``ops.mean_shift.first_row``) and returned as given in indices[:, 0].
+X is [B, N, d] fp32 (unit rows), d in EMBED_DIMS (64, or 128 for the 'cat'
+fusion's embedding), first_seed_idx an int or a [B] integer tensor, read as
+the JAX package's ``X[first_seed_idx]`` reads it (``ops.mean_shift.first_row``)
+and returned as given in indices[:, 0].
 """
 
 from __future__ import annotations
@@ -29,9 +30,11 @@ import torch
 
 from .mean_shift import assign_clusters, connected_components, fps_batched, seed_hill_climbing
 
-EMBED_DIM = 64         # D in the .cu files
+EMBED_DIMS = (64, 128)  # the widths D the .cu files are instantiated for
+EMBED_DIM = 64          # the default width (cfg.backbone.num_units)
 MAX_SEEDS = 128        # MAX_SEEDS in mean_shift_climb.cu
-FPS_ROWS_PER_PASS = 32  # rows a block of fps_seeds.cu takes per pass (16 lanes a row)
+FPS_THREADS = 512       # THREADS in fps_seeds.cu: a row takes d / 4 lanes (one float4 each)
+FPS_ROWS_PER_PASS = 32  # rows a block of fps_seeds.cu takes per pass at d = 64
 FPS_REG_ROWS = 16       # REG in fps_seeds.cu: register rows a lane group holds
 FPS_RED_FLOATS = 36     # RED_FLOATS in fps_seeds.cu: the argmax scratch
 FPS_L2_BYTES = 24 << 20  # rows of X the FPS grid keeps in the L2 across steps, at most
@@ -85,17 +88,25 @@ def device_limits(device) -> dict:
         if not out[2]:
             raise RuntimeError(f"CUDA device {index} has no cooperative launch, which the "
                                "FPS kernel needs")
-        if (out[3], out[4]) != (FPS_ROWS_PER_PASS * EMBED_DIM // 4, FPS_REG_ROWS):
+        if (out[3], out[4]) != (FPS_THREADS, FPS_REG_ROWS):
             raise RuntimeError("fps_seeds.cu and ops/mean_shift_kernels.py disagree on the "
                                "block shape")
         _limits[index] = {"sms": out[0], "smem_per_block": out[1]}
     return _limits[index]
 
 
-def fps_plan(B: int, N: int, sms: int, smem_per_block: int) -> dict:
+def fps_rows_per_pass(d: int) -> int:
+    """Rows a block of fps_seeds.cu takes per pass at width d (d / 4 lanes a
+    row): 32 at d = 64, 16 at d = 128."""
+    return FPS_THREADS * 4 // d
+
+
+def fps_plan(B: int, N: int, sms: int, smem_per_block: int, d: int = 64) -> dict:
     """Launch plan of the persistent FPS kernel (csrc/fps_seeds.cu) for X
-    [B, N, 64] on a device with `sms` SMs and `smem_per_block` bytes of
-    dynamic shared memory a block may opt in to.
+    [B, N, d] on a device with `sms` SMs and `smem_per_block` bytes of
+    dynamic shared memory a block may opt in to. At d = 128 a row takes
+    twice the bytes and a pass half the rows, so a block holds half as many
+    rows on chip.
 
     The B N rows form one range cut into `grid` equal slices of
     `rows_per_block` rows (the last may be shorter), one block per SM (the
@@ -111,6 +122,8 @@ def fps_plan(B: int, N: int, sms: int, smem_per_block: int) -> dict:
     fps_smem_bytes in the .cu file computes it), and, over all blocks, the
     rows kept in the L2 (`l2_held_rows`) and read from device memory at
     every step (`streamed_rows`)."""
+    if d not in EMBED_DIMS:
+        raise ValueError(f"the FPS kernel takes d in {EMBED_DIMS}, got {d}")
     if B < 1 or N < 1 or sms < 1:
         raise ValueError(f"need B, N, sms >= 1, got {B}, {N}, {sms}")
     total = B * N
@@ -119,14 +132,14 @@ def fps_plan(B: int, N: int, sms: int, smem_per_block: int) -> dict:
     rows = -(-total // min(sms, total))
     grid = -(-total // rows)
     image_slots = (rows - 1 + N - 1) // N + 1
-    row_bytes = 4 * EMBED_DIM
-    fixed = 4 * (image_slots * EMBED_DIM + FPS_RED_FLOATS + -(-rows // 4) * 4)
+    row_bytes = 4 * d
+    fixed = 4 * (image_slots * d + FPS_RED_FLOATS + -(-rows // 4) * 4)
     if fixed > smem_per_block:
         raise ValueError(f"{rows} rows a block: their running distances do not fit in "
                          f"{smem_per_block} bytes of shared memory (B * N = {total})")
     resident = min(rows, (smem_per_block - fixed) // row_bytes)
     register = FPS_REG_ROWS if rows > resident else 0
-    on_chip = min(rows, resident + register * FPS_ROWS_PER_PASS)
+    on_chip = min(rows, resident + register * fps_rows_per_pass(d))
     l2 = min(rows - on_chip, FPS_L2_BYTES // (grid * row_bytes))
     slices = [rows] * (grid - 1) + [total - (grid - 1) * rows]
     off_chip = [max(0, n - on_chip) for n in slices]
@@ -137,19 +150,21 @@ def fps_plan(B: int, N: int, sms: int, smem_per_block: int) -> dict:
             "streamed_rows": sum(max(0, n - l2) for n in off_chip)}
 
 
-def climb_plan(B: int, N: int, sms: int) -> dict:
+def climb_plan(B: int, N: int, sms: int, seed_blocks: int = 1) -> dict:
     """Launch plan of the hill-climbing kernel (csrc/mean_shift_climb.cu),
     one block per SM at a time: the key splits per image (keys per split a
     multiple of the 64-key tile) that take the least time, counted as waves
     of `sms` blocks times the tile times of a block (its tiles plus
-    CLIMB_BLOCK_TILES), the fewest blocks on ties. -> dict with keys
+    CLIMB_BLOCK_TILES), the fewest blocks on ties. seed_blocks: blocks per
+    split and image (d = 128 runs one per 64 seeds). -> dict with keys
     keys_per_block and nsplit."""
     best = None
-    for per_image in range(1, max(1, 4 * sms // B) + 1):
+    Bb = B * seed_blocks
+    for per_image in range(1, max(1, 4 * sms // Bb) + 1):
         keys = -(-N // per_image)
         keys = -(-keys // CLIMB_TILE) * CLIMB_TILE
         nsplit = -(-N // keys)
-        cost = -(-B * nsplit // sms) * (keys // CLIMB_TILE + CLIMB_BLOCK_TILES)
+        cost = -(-Bb * nsplit // sms) * (keys // CLIMB_TILE + CLIMB_BLOCK_TILES)
         if best is None or cost < best[0]:
             best = (cost, keys, nsplit)
     return {"keys_per_block": best[1], "nsplit": best[2]}
@@ -160,8 +175,9 @@ def _check_X(X):
         raise ValueError(f"X must be a CUDA tensor, got {X.device}")
     if X.dtype != torch.float32:
         raise TypeError(f"X must be torch.float32, got {X.dtype}")
-    if X.dim() != 3 or X.shape[2] != EMBED_DIM or X.shape[0] < 1 or X.shape[1] < 1:
-        raise ValueError(f"X must be [B, N, {EMBED_DIM}] with B, N >= 1, got {tuple(X.shape)}")
+    if X.dim() != 3 or X.shape[2] not in EMBED_DIMS or X.shape[0] < 1 or X.shape[1] < 1:
+        raise ValueError(f"X must be [B, N, d] with d in {EMBED_DIMS} and B, N >= 1, "
+                         f"got {tuple(X.shape)}")
     if not X.is_contiguous():
         raise ValueError("X must be contiguous")
     if X.data_ptr() % 16:
@@ -193,7 +209,7 @@ def fps_seeds(X, first_seed_idx, num_seeds: int = 100):
         raise ValueError(f"num_seeds must be >= 1, got {num_seeds}")
     B, N, d = X.shape
     first = _first_indices(first_seed_idx, B, X.device)
-    plan = fps_plan(B, N, **device_limits(X.device))
+    plan = fps_plan(B, N, **device_limits(X.device), d=d)
     seeds = torch.empty((B, num_seeds, d), dtype=torch.float32, device=X.device)
     indices = torch.empty((B, num_seeds), dtype=torch.int32, device=X.device)
     pv = torch.empty((2, plan["grid"] + B), dtype=torch.float32, device=X.device)
@@ -244,7 +260,8 @@ def mean_shift_seeds(X, first_seed_idx, kappa: float = 20.0, num_seeds: int = 10
     if max_iters == 0:
         return seeds, indices
     B, N, d = X.shape
-    plan = climb_plan(B, N, device_limits(X.device)["sms"])
+    plan = climb_plan(B, N, device_limits(X.device)["sms"],
+                      seed_blocks=1 if d == 64 else -(-num_seeds // 64))
     partial = torch.empty((B, plan["nsplit"], num_seeds, d), dtype=torch.float32,
                           device=X.device)
     lib = _library("mean_shift_climb")

@@ -84,15 +84,25 @@ def _in_range(label, max_label: int):
     return torch.where(inside, flat, 0), inside
 
 
+def _counts(flat, weight, max_label: int):
+    """Per-label sums of the int64 ``weight`` [N] over ``flat`` [N] labels in
+    [0, max_label): a bincount of fixed length that queues on the device
+    without a host sync (torch.bincount and boolean indexing read sizes on
+    the host)."""
+    out = torch.zeros(max_label, dtype=torch.int64, device=flat.device)
+    return out.scatter_add_(0, flat, weight)
+
+
 def filter_labels_depth(label, xyz_z, threshold: float, max_label: int):
     """Zero out labels whose fraction of valid-depth (z > 0) pixels is below
     threshold. label: [H, W] int; values outside [0, max_label) become 0."""
     flat, inside = _in_range(label, max_label)
-    sizes = torch.bincount(flat[inside], minlength=max_label)
-    valid_depth = torch.bincount(flat[inside & (xyz_z.reshape(-1) > 0)], minlength=max_label)
+    sizes = _counts(flat, inside.long(), max_label)
+    valid_depth = _counts(flat, (inside & (xyz_z.reshape(-1) > 0)).long(), max_label)
     frac = valid_depth.float() / sizes.clamp_min(1).float()
-    keep = frac >= threshold
-    keep[0] = True
+    # label 0 is always kept (a cat, not keep[0] = True: a scalar store
+    # copies from the host and syncs)
+    keep = torch.cat([torch.ones_like(frac[:1], dtype=torch.bool), frac[1:] >= threshold])
     keep_pix = (keep[flat] & inside).reshape(label.shape)
     return torch.where(keep_pix, label, torch.zeros_like(label))
 
@@ -105,11 +115,11 @@ def renumber_labels_by_size(label, max_label: int):
     The UCN path gives the max_instances crop slots to the largest clusters
     (ref: lib/fcn/test_dataset.py:314-321 crops every label, with no cap)."""
     flat, inside = _in_range(label, max_label)
-    sizes = torch.bincount(flat[inside], minlength=max_label)
-    sizes[0] = 0                                       # background takes no rank
+    sizes = _counts(flat, inside.long(), max_label)
+    sizes = torch.cat([torch.zeros_like(sizes[:1]), sizes[1:]])   # background takes no rank
     order = torch.argsort(-sizes, stable=True)
-    new_id = torch.empty_like(order)
-    new_id[order] = torch.arange(1, max_label + 1, device=label.device)
+    new_id = torch.empty_like(order).scatter_(
+        0, order, torch.arange(1, max_label + 1, device=label.device))
     new_id = torch.where(sizes > 0, new_id, 0)
     renumbered = torch.where(inside, new_id[flat], 0)
     return renumbered.reshape(label.shape).to(torch.int32), (sizes > 0).sum().to(torch.int32)

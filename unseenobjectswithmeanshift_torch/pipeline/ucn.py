@@ -11,10 +11,14 @@ UCNPredictor :76; ref: lib/fcn/test_dataset.py:232-321 test_sample):
   crop features -> clustering -> labels +1 -> match_label_crop paste-back
 
 Cluster label 0 is the largest cluster (background). On a CUDA tensor the
-seeding runs on the FPS kernel, and with ``mean_shift.use_pallas`` the hill
-climbing too on the fused kernel (``ops/mean_shift_kernels.py``). The crop
-network runs only on the crops that are present, compacted with one host sync
-on the crop count, as ``pipeline/two_stage.py`` does.
+seeding runs on the FPS kernel, the connected components of the climbed seeds
+on their kernel, and with ``mean_shift.use_pallas`` the hill climbing too on
+the fused kernel (``ops/mean_shift_kernels.py``, ``ops/mean_shift.py``): the
+embedding may be 64-d or, with 'cat' fusion, 128-d. Stage 1 queues with no
+host sync. The crop network runs only on the crops that are present,
+compacted with one host sync on the crop count and the dropped clusters, as
+``pipeline/two_stage.py`` does; ``stream`` queues the next batches' stage 1
+before it (JAX ucn.py:166-185).
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from ..config import Config
 from ..models.segnet import SEGNET
 from ..ops.mean_shift_kernels import mean_shift_smart_init_fps, mean_shift_smart_init_fused
 from .postprocess import filter_labels_depth, renumber_labels_by_size
-from .refine import Crops, crop_rois, match_label_crop
+from .refine import Crops, crop_rois
+from .two_stage import compact_crops, paste_back, stream_batches
 
 
 def _cluster_batched(X, ms, first_seed_idx):
@@ -53,7 +58,8 @@ class UCNPredictor:
     """Two-stage UCN predictor (whole-image SEGNET + crop SEGNET).
 
     network / network_crop: SEGNETs on one device, in eval mode. Inputs are
-    [B, H, W, 3] normalized BGR images and [B, H, W, 3] XYZ maps."""
+    [B, H, W, 3] normalized BGR images and [B, H, W, 3] XYZ maps (None for
+    COLOR input: no depth filter)."""
 
     def __init__(self, network: SEGNET, network_crop: SEGNET, cfg: Config,
                  cfg_crop: Optional[Config] = None):
@@ -69,19 +75,23 @@ class UCNPredictor:
         return _cluster_batched(X, self.cfg.mean_shift, first_seed_idx).reshape(B, H, W)
 
     @torch.inference_mode()
-    def stage1(self, image, xyz, depth_threshold: float = 0.8,
+    def stage1(self, image, xyz=None, depth_threshold: float = 0.8,
                first_seed_idx=0) -> UCNStage1:
+        """Embeddings, clustering, labels and crops of a batch, queued on the
+        device with no host sync."""
         ms, t = self.cfg.mean_shift, self.cfg.test
         labels = self.cluster(self.network(image, xyz), first_seed_idx)
         out, counts, crops = [], [], []
         for b in range(labels.shape[0]):
-            lab = filter_labels_depth(labels[b], xyz[b, ..., 2], depth_threshold,
-                                      max_label=ms.num_seeds)
+            lab, xyz_b = labels[b], None if xyz is None else xyz[b]
+            if xyz_b is not None:
+                lab = filter_labels_depth(lab, xyz_b[..., 2], depth_threshold,
+                                          max_label=ms.num_seeds)
             lab, k = renumber_labels_by_size(lab, ms.num_seeds)
             out.append(lab)
             counts.append(k)
             shifted = torch.where(lab > 0, lab + 1, 0)
-            crops.append(crop_rois(image[b], shifted, xyz[b], max_instances=t.max_instances,
+            crops.append(crop_rois(image[b], shifted, xyz_b, max_instances=t.max_instances,
                                    crop_size=t.crop_size, padding=t.crop_padding))
         return UCNStage1(torch.stack(out), torch.stack(counts), crops)
 
@@ -95,7 +105,6 @@ class UCNPredictor:
     def refine(self, s1: UCNStage1, first_seed_idx=0) -> torch.Tensor:
         """Crop network on the present crops, then the paste-back -> [B, H, W]."""
         labels = s1.labels
-        B, H, W = labels.shape
         T, S = self.cfg.test.max_instances, self.cfg.test.crop_size
         present = torch.stack([c.present for c in s1.crops]).reshape(-1)     # [B*T]
         dropped = (s1.n_clusters - T).clamp_min(0).sum()
@@ -108,20 +117,11 @@ class UCNPredictor:
         if not slots:
             return labels
         idx = torch.tensor(slots, device=labels.device)
-        rgb = torch.stack([c.rgb for c in s1.crops]).reshape(B * T, S, S, 3)[idx]
-        dep = torch.stack([c.xyz for c in s1.crops]).reshape(B * T, S, S, 3)[idx]
+        rgb, dep = compact_crops(s1.crops, idx, T, S)
         labels_p = self._crop_labels(rgb, dep, first_seed_idx)
-        labels_crop = torch.zeros((B * T, S, S), dtype=labels_p.dtype, device=labels.device)
-        labels_crop[idx] = labels_p
-        labels_crop = labels_crop.reshape(B, T, S, S)
-        refined = []
-        for b, c in enumerate(s1.crops):
-            r = match_label_crop(labels_crop[b], c.mask, c.rois, c.xyz[..., 2], c.present,
-                                 (H, W), overlap_threshold=self.cfg.test.overlap_match_threshold)
-            refined.append(torch.where(c.present.any(), r, labels[b]))
-        return torch.stack(refined)
+        return paste_back(labels, s1.crops, labels_p, idx, self.cfg.test)
 
-    def __call__(self, image, xyz, depth_threshold: float = 0.8, refine: bool = True,
+    def __call__(self, image, xyz=None, depth_threshold: float = 0.8, refine: bool = True,
                  first_seed_idx=0):
         """-> (labels [B, H, W], refined [B, H, W]) int32."""
         s1 = self.stage1(image, xyz, depth_threshold=depth_threshold,
@@ -129,3 +129,14 @@ class UCNPredictor:
         if not refine:
             return s1.labels, s1.labels
         return s1.labels, self.refine(s1, first_seed_idx)
+
+    def stream(self, batches, depth_threshold: float = 0.8, first_seed_idx=0,
+               depth: int = 2):
+        """Software-pipelined inference over (image, xyz) batches, with the
+        contract of ``TwoStagePredictor.stream``: stage 1 of the next
+        ``depth`` batches is queued before each batch's one sync (the crop
+        count and dropped clusters). Yields (labels, refined) in order."""
+        yield from stream_batches(
+            lambda b: self.stage1(*b, depth_threshold=depth_threshold,
+                                  first_seed_idx=first_seed_idx),
+            lambda s1: self.refine(s1, first_seed_idx), batches, depth)

@@ -6,9 +6,14 @@ MSMFormer: it takes the ``{"params": ..., "batch_stats": ...}`` tree as numpy
 arrays and returns a state_dict with the reference checkpoint's key names,
 which ``MSMFormer.load_state_dict`` accepts as it is.
 ``from_jax_segnet_variables`` does the same for the UCN SEGNET alone, the
-inverse of ``utils.checkpoint.convert_ucn_checkpoint``. ``load_npz_variables``
+inverse of ``utils.checkpoint.convert_ucn_checkpoint``. Both take every SEGNET
+variant: one tower (``fcn``: COLOR, DEPTH, 'early' with a 6-channel conv1)
+or two (``fcn`` and ``fcn_depth``: 'add', 'cat'). ``load_npz_variables``
 reads such a tree back from the ``.npz`` that ``scripts/export_release_npz.py``
-writes from a committed release, with numpy alone.
+writes from a committed release, with numpy alone. ``load_reference_checkpoint``
+reads a reference ``.pth`` (the published UCN and MSMFormer checkpoints) into
+a state_dict of the port's modules, and ``fuse_tower_state`` fuses a
+two-tower state_dict into the grouped layout (``SEGNET.grouped_towers``).
 
 Layouts: flax conv [kh, kw, in, out] -> torch [out, in, kh, kw];
 Dense [in, out] -> Linear [out, in]; the q/k/v kernels are packed into
@@ -87,13 +92,71 @@ def load_npz_variables(path) -> dict:
 
 
 def from_jax_segnet_variables(variables) -> dict:
-    """{"params": {"fcn", "fcn_depth"}, "batch_stats"} numpy tree of the JAX
-    SEGNET -> state_dict of the port's ``SEGNET`` (``fcn.resnet34_8s.*``,
-    ``fcn_depth.resnet34_8s.*``)."""
+    """{"params": {"fcn"[, "fcn_depth"]}, "batch_stats"} numpy tree of the JAX
+    SEGNET -> state_dict of the port's ``SEGNET`` (``fcn.resnet34_8s.*`` and,
+    with two towers, ``fcn_depth.resnet34_8s.*``). A grouped tree (the JAX
+    package's ``fuse_grouped_towers``) has one tower of twice the width."""
     params, stats = variables["params"], variables["batch_stats"]
     sd = {}
     for tower in ("fcn", "fcn_depth"):
-        _backbone(params[tower], stats[tower], f"{tower}.resnet34_8s.", sd)
+        if tower in params:
+            _backbone(params[tower], stats[tower], f"{tower}.resnet34_8s.", sd)
+    return sd
+
+
+def fuse_tower_state(state_dict) -> dict:
+    """Fuse every two-tower pair ``<p>fcn.*`` / ``<p>fcn_depth.*`` of a
+    state_dict into the grouped single stack of ``SEGNET(grouped_towers=
+    True)`` (the counterpart of the JAX package's ``fuse_tower_params``):
+    a grouped conv's weight [out_total, in / groups, kh, kw] holds the groups
+    along its output axis, so stacking the towers' weights (and every per-
+    channel BatchNorm and bias leaf) on axis 0 gives the two towers exactly.
+    Checkpoints keep the two-tower layout; this runs at load time."""
+    fused = {}
+    for key, value in state_dict.items():
+        m = re.fullmatch(r"((?:.*\.)?)fcn_depth\.(.*)", key)
+        if m and f"{m.group(1)}fcn.{m.group(2)}" in state_dict:
+            continue                                   # joined into its fcn twin
+        m = re.fullmatch(r"((?:.*\.)?)fcn\.(.*)", key)
+        twin = m and state_dict.get(f"{m.group(1)}fcn_depth.{m.group(2)}")
+        if twin is not None and value.dim() > 0:
+            value = torch.cat([value, twin], 0)
+        fused[key] = value
+    return fused
+
+
+_REFERENCE_KEYS = re.compile(
+    r"((pretrained_backbone\.)?(fcn|fcn_depth)\.resnet34_8s\.(conv1|bn1|fc|layer\d+)\..*"
+    r"|sem_seg_head\.pixel_decoder\.mask_features\.(weight|bias)"
+    r"|sem_seg_head\.predictor\.(query_feat|query_embed|level_embed|static_query|input_proj"
+    r"|transformer_(cross|self)_attention_layers|transformer_ffn_layers|decoder_norm"
+    r"|class_embed|mask_embed)\..*)")
+
+
+def load_reference_checkpoint(path) -> dict:
+    """A reference ``.pth`` (a UCN SEGNET or a PretrainedMeanShiftMaskFormer
+    checkpoint) as a state_dict that the port's ``SEGNET`` or ``MSMFormer``
+    loads with ``strict=True``. Read with ``torch.load(weights_only=True)``;
+    detectron2's ``{"model": ...}`` wrapper is unwrapped, as the JAX
+    package's ``load_torch_state_dict`` does. The legacy key rewrites and the
+    keys left out are those of its ``convert_ucn_checkpoint`` and
+    ``convert_msmformer_checkpoint``: the ``module.`` and ``model.``
+    prefixes are dropped, ``static_query`` becomes ``query_feat``, and keys
+    that hold no weight of the network (criterion and embedding-loss
+    buffers, pixel statistics, SEGNET decoder keys) are left out."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(data, dict) and isinstance(data.get("model"), dict):
+        data = data["model"]                       # detectron2 checkpointer format
+    sd = {}
+    for key, value in data.items():
+        for prefix in ("module.", "model."):
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+        if not _REFERENCE_KEYS.fullmatch(key):
+            continue
+        sd[key.replace("predictor.static_query.", "predictor.query_feat.")] = value
+    if not sd:
+        raise ValueError(f"{path} holds no SEGNET or MSMFormer weights")
     return sd
 
 
@@ -102,7 +165,7 @@ def from_jax_variables(variables) -> dict:
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd = {}
     bb, bbs = params["pretrained_backbone"], stats["pretrained_backbone"]
-    for tower in ("fcn", "fcn_depth"):
+    for tower in ("fcn", "fcn_depth"):      # one tower or two
         if tower in bb:
             _backbone(bb[tower], bbs[tower], f"pretrained_backbone.{tower}.resnet34_8s.", sd)
     pd = params["pixel_decoder"]
