@@ -39,7 +39,14 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             the fp32 plain version is printed with its gap; the climbed seeds
             agree with the plain version in fp64 within CLIMB_TOL, on the
             clustered rows and on random unit rows (where products in plain
-            1xTF32 would fail it).
+            1xTF32 would fail it). Then the sizes past one launch of each
+            kernel: FPS at B=160 crops (8 frames x 20), which runs in
+            groups of whole images, one launch each (fps_plan): the images
+            on both sides of each group boundary through the fp64 gate, and
+            launched together in one call with the same indices; and 200
+            seeds (two blocks of the climbing kernel, a wider block of the
+            connected components): FPS and climbing against fp64, the
+            components equal to the numpy sweep.
 6. ucn_time kernel, plain and bound ms of both kernels at both shapes, the
             earlier kernels' ms beside them; FPS ms per step and its
             streaming floor (the rows of X read from device memory at every
@@ -69,7 +76,8 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             breakdown of main. With --weights PATH (a numpy export of one
             MSMFormer release by scripts/export_release_npz.py), the same on
             those weights, paired with themselves for stage 2, with the kernel
-            ms dense / skipping / force_all on each layer's own inputs.
+            ms dense / skipping / force_all on each layer's own inputs (and
+            bf16_main compares bf16 with fp32 on them).
 10. masked_attention  the two masked-attention kernels
             (masked_hypersphere_attention, fused_masked_hypersphere_attention),
             driven once at B=1/K=307,200 and B=20/K=50,176 (H=8, Q=100, D=32,
@@ -102,6 +110,23 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
 18. cc_check  the connected-components kernel equal to its numpy sweep on
             every clustering of the UCN frames of phases 7, 13 and 16; its ms
             beside the host sweep's.
+19. bf16_check  the cross-attention's bf16 variant (all inputs and the
+            output bf16, the JAX package's serving dtype) against its plain
+            twin on the same bf16 inputs (BF16_TOL) at B=1/K=307,200,
+            B=8/K=50,176 (2 absent), B=20/K=50,176 and the key_stride 3
+            crops (B=20, K=5,625), both positional forms, guard queries;
+            the mask pass alone on bf16 operands against the fp64 signs
+            outside MASK_MARGIN; tile skipping equal to dense (torch.equal)
+            on concentrated masks; kernel, twin, fp32 kernel and bound ms
+            (products at the bf16 tensor rate); ptxas registers.
+20. bf16_main  the two-stage MSMFormer with bf16=True at full width on the
+            decisive weights, at B=1 and B=8 frames: 6 + 6 bf16 launches a
+            frame, the model surface against fp32 on the same weights and
+            frames, label agreement, crops, e2e in turns with fp32 and the
+            bf16 breakdown; the bf16 path with decoder.tile_skip equal to
+            the dense bf16 path; one UCN frame with bf16 SEGNETs; with
+            --weights, the B=1 comparison on those weights. Phases 15 and
+            16 run the bf16 MSMFormer predictor too.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure ends the run with a
@@ -249,12 +274,13 @@ def work(args, present, occ=None):
     tc = n * 2 * Q * K * CM + k_img * (4 * C * E + 2 * H * Q * D + 2 * H * Q * (D + 1))
     nbytes = (sum(t.numel() * t.element_size() for a in args
                   for t in (a if isinstance(a, tuple) else (a,)))
-              + present.numel() + qn.numel() * 4 - (B * K - k_img) * C * 4)
+              + present.numel() + qn.numel() * qn.element_size()
+              - (B * K - k_img) * C * featT.element_size())
     if isinstance(pos, tuple):
         fma = 2 * (pos[0].shape[1] + pos[1].shape[1]) * (E // 2) * E
     else:
         fma = 2 * k_any * E * E
-        nbytes -= (K - k_any) * E * 4
+        nbytes -= (K - k_any) * E * pos.element_size()
     return tc, fma, nbytes
 
 
@@ -342,10 +368,11 @@ def mask_mismatches(bits, cnt, me, mfT, present=None):
     return out
 
 
-def check_mask_case(name, B, K, absent=()):
-    """The mask pass alone on mask_inputs(B, K), held by mask_mismatches;
-    raises on a bad bit or count. -> the mismatch dict."""
-    me, mfT = mask_inputs(B, K)
+def check_mask_case(name, B, K, absent=(), dtype=torch.float32):
+    """The mask pass alone on mask_inputs(B, K) (rounded to `dtype`), held
+    by mask_mismatches to the fp64 logits of those operands; raises on a bad
+    bit or count. -> the mismatch dict."""
+    me, mfT = (t.to(dtype) for t in mask_inputs(B, K))
     present = torch.ones(B, dtype=torch.bool, device="cuda")
     for b in absent:
         present[b] = False
@@ -353,7 +380,7 @@ def check_mask_case(name, B, K, absent=()):
     r = mask_mismatches(bits, cnt, me, mfT, present)
     absent_zero = all(bool((bits[b] == 0).all() and (cnt[b] == 0).all()) for b in absent)
     guard = bool((cnt[present][:, :4] == 0).all())
-    sync_print(f"check mask {name}: bad={r['bad']} (keys beyond the margin "
+    sync_print(f"check mask {name} {str(dtype)[6:]}: bad={r['bad']} (keys beyond the margin "
                f"{MASK_MARGIN:.2e} of the scale whose bit disagrees with the fp64 logit) "
                f"flipped={r['flipped']} near={r['near']} worst_flipped_logit/scale="
                f"{r['worst']:.3e} counts_match_bits={r['cnt_ok']} guard_rows_empty={guard} "
@@ -475,21 +502,24 @@ def clustered_unit_vectors(B, N, seed=0, k=12, d=EMBED):
     return X.contiguous(), first, groups
 
 
-def check_fps(name, X, first, groups):
-    """FPS kernel per step against fp64, ties, and the departure from the
-    fp32 plain version; raises on a failure. -> (seeds, indices, max gap)."""
-    B, N, _ = X.shape
-    seeds, idx = fps_seeds(X, first, SEEDS)
-    _, pidx = fps_seeds_plain(X, first, SEEDS)
+def fps_gate(X, first, seeds, idx, groups, pidx=None):
+    """The FPS gates on the kernel's (seeds, idx) [B, S] of X [B, N, d]: per
+    step the gap between the fp64 maximum of the running minimum distance
+    (from the kernel's own earlier seeds) and the kernel's pick; seeds equal
+    to X[idx] bit for bit; the chains start at `first`; identical rows (the
+    isolated `groups`) taken at their lowest index. With the fp32 plain
+    version's indices `pidx`, also the first step where it departs and the
+    fp64 gap there. -> dict."""
+    B, S = idx.shape
     rows = torch.arange(B, device="cuda")
     idx_l = idx.long()
     bit_exact = torch.equal(seeds, X[rows[:, None], idx_l])
     starts = torch.equal(idx[:, 0], first)
-    departs = (idx != pidx).any(0).nonzero().flatten().tolist()
+    departs = [] if pidx is None else (idx != pidx).any(0).nonzero().flatten().tolist()
     dep = departs[0] if departs else None
     X64 = X.double()
     mind, gaps, dep_gap = None, [], None
-    for i in range(SEEDS):
+    for i in range(S):
         if i > 0:
             gaps.append(mind.amax(1) - mind[rows, idx_l[:, i]])
             if i == dep:
@@ -500,23 +530,36 @@ def check_fps(name, X, first, groups):
     max_gap = torch.stack(gaps).max().item()
     # identical rows must go to the lowest index: no later copy before it
     hit = idx_l[:, :, None, None] == groups[None, None]            # [B, S, 8, 3]
-    step = torch.where(hit.any(1), hit.int().argmax(1), SEEDS)      # [B, 8, 3]
+    step = torch.where(hit.any(1), hit.int().argmax(1), S)          # [B, 8, 3]
     tie_ok = bool((step[..., 1:].amin(-1) >= step[..., 0]).all())
-    reached = int((step[..., 0] < SEEDS).sum())
+    reached = int((step[..., 0] < S).sum())
     del X64, mind
-    sync_print(f"ucn_check fps {name}: max_gap_vs_fp64={max_gap:.3e} (tol={FPS_TOL:.0e}) "
-               f"seeds_bit_exact={bit_exact} first_ok={starts} tie_groups_reached={reached} "
-               f"ties_to_lowest={tie_ok} departs_from_fp32_plain="
-               + (f"step {dep} gap_fp64={dep_gap:.3e}" if dep is not None else "never"))
-    if not (max_gap <= FPS_TOL and bit_exact and starts and tie_ok):
+    return dict(max_gap=max_gap, bit_exact=bit_exact, starts=starts, tie_ok=tie_ok,
+                reached=reached, dep=dep, dep_gap=dep_gap,
+                ok=max_gap <= FPS_TOL and bit_exact and starts and tie_ok)
+
+
+def check_fps(name, X, first, groups, S=SEEDS):
+    """FPS kernel per step against fp64, ties, and the departure from the
+    fp32 plain version; raises on a failure. -> (seeds, indices, max gap)."""
+    seeds, idx = fps_seeds(X, first, S)
+    _, pidx = fps_seeds_plain(X, first, S)
+    r = fps_gate(X, first, seeds, idx, groups, pidx)
+    dep = r["dep"]
+    sync_print(f"ucn_check fps {name}: max_gap_vs_fp64={r['max_gap']:.3e} (tol={FPS_TOL:.0e}) "
+               f"seeds_bit_exact={r['bit_exact']} first_ok={r['starts']} "
+               f"tie_groups_reached={r['reached']} ties_to_lowest={r['tie_ok']} "
+               "departs_from_fp32_plain="
+               + (f"step {dep} gap_fp64={r['dep_gap']:.3e}" if dep is not None else "never"))
+    if not r["ok"]:
         raise AssertionError(f"FPS kernel disagrees with its plain version at {name}")
-    return seeds, idx, max_gap
+    return seeds, idx, r["max_gap"]
 
 
-def check_climb(name, X, first, seeds, idx):
+def check_climb(name, X, first, seeds, idx, S=SEEDS):
     """Hill-climbing kernel against its plain version in fp64, from the
     kernel's own FPS seeds; raises on a failure. -> max abs error."""
-    Z, zidx = mean_shift_seeds(X, first, KAPPA, SEEDS, ITERS)
+    Z, zidx = mean_shift_seeds(X, first, KAPPA, S, ITERS)
     Z64 = seed_hill_climbing(X.double(), seeds.double(), KAPPA, ITERS)
     Zp = seed_hill_climbing(X, seeds, KAPPA, ITERS)
     err = (Z.double() - Z64).abs().max().item()
@@ -923,22 +966,33 @@ MATTN_DESIGN = {
 MATTN_RAGGED = {"ragged_Q128_K777_E20": (2, 128, 777, 20), "ragged_Q1_K777_E20": (2, 1, 777, 20)}
 
 
-def ptxas_report(source, kernels):
-    """{kernel: {"registers": n, "spill_bytes": stores}} from nvcc's -Xptxas=-v
-    log of csrc/<source>.cu, for the entry functions whose name holds one of
-    `kernels` (template variants kept apart by their mangled arguments)."""
-    report, name = {}, None
+def ptxas_entries(source):
+    """[(mangled entry function, registers, spill store bytes)] from nvcc's
+    -Xptxas=-v log of csrc/<source>.cu."""
+    out, sym = [], None
     for line in _build.build_log.get(source, "").splitlines():
         if "Compiling entry function" in line:
-            sym = line.split("'")[1]
-            k = next((k for k in kernels if k in sym), None)
-            args = re.match(r"I((?:Lb[01]E)+)E", sym[sym.index(k) + len(k):]) if k else None
-            name = k and k + (f"<{','.join(re.findall(r'Lb([01])E', args.group(1)))}>"
-                              if args else "")
-        elif name and "spill stores" in line:
-            report[name] = {"spill_bytes": int(line.split("bytes spill stores")[0].split(",")[-1])}
-        elif name and "Used" in line and "registers" in line:
-            report[name]["registers"] = int(line.split("Used ")[1].split(" registers")[0])
+            sym, spill = line.split("'")[1], 0
+        elif sym and "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif sym and "Used" in line and "registers" in line:
+            out.append((sym, int(line.split("Used ")[1].split(" registers")[0]), spill))
+            sym = None
+    return out
+
+
+def ptxas_report(source, kernels):
+    """{kernel: {"registers": n, "spill_bytes": stores}} of the entry
+    functions of csrc/<source>.cu whose name holds one of `kernels`
+    (template variants kept apart by their mangled arguments)."""
+    report = {}
+    for sym, regs, spill in ptxas_entries(source):
+        k = next((k for k in kernels if k in sym), None)
+        if k is None:
+            continue
+        args = re.match(r"I((?:Lb[01]E)+)E", sym[sym.index(k) + len(k):])
+        name = k + (f"<{','.join(re.findall(r'Lb([01])E', args.group(1)))}>" if args else "")
+        report[name] = {"registers": regs, "spill_bytes": spill}
     return report
 
 
@@ -1345,6 +1399,7 @@ def kernel_counts():
 
 def zero_counts():
     fused_uoms_cross_attention.launches = fused_uoms_cross_attention.general_pos_launches = 0
+    fused_uoms_cross_attention.bf16_launches = 0
     fps_seeds.launches = mean_shift_seeds.launches = connected_components_sweep.launches = 0
 
 
@@ -1454,7 +1509,9 @@ def stage1_no_sync_phase():
     torch.cuda.set_sync_debug_mode("error"): any host sync raises."""
     image, xyz = synthetic_rgbd(seed=0)
     preds = {"msmformer": decisive_predictor(seed=0),
-             "ucn": decisive_ucn_predictor(image, xyz, seed=0)}
+             "msmformer_bf16": decisive_predictor(seed=0, bf16=True),
+             "ucn": decisive_ucn_predictor(image, xyz, seed=0),
+             "ucn_bf16": decisive_ucn_predictor(image, xyz, seed=0, bf16=True)}
     for tag, preset, use_pallas in (("ucn_use_pallas", "tabletop_pretrained", True),
                                     ("ucn_rgbd_cat", "ucn_rgbd_cat", True)):
         preds[tag] = preset_predictor("ucn", preset, {}, use_pallas, image, xyz)
@@ -1480,6 +1537,7 @@ def stream_main_phase(results, frames=8):
     clock around the whole run, ending in a synchronize; median of 3)."""
     scenes = [synthetic_rgbd(seed=i) for i in range(frames)]
     preds = {"msmformer": decisive_predictor(seed=0),
+             "msmformer_bf16": decisive_predictor(seed=0, bf16=True),
              "ucn": decisive_ucn_predictor(*scenes[0], seed=0)}
     for tag, pred in preds.items():
         want = [pred(img, xyz) for img, xyz in scenes]
@@ -1524,6 +1582,381 @@ def demo_frame_phase():
     assert (labels == want).all()
 
 
+
+# bf16, the JAX package's serving dtype (bench.py:86-88). The bf16 kernel is
+# held to its plain twin on the same bf16 inputs: both round k^, the weights
+# and v to bf16 and sum in fp32, in other orders (the twin on cuBLAS fp32
+# products of the bf16 values, the kernel on mma.sync with fp32
+# accumulation, its weights from ex2.approx), so a rounding of k^ or of a
+# weight can fall the other way: a few bf16 ulps (2^-8 at outputs below 1).
+# BF16_TOL is the JAX package's own gate for its compiled bf16 kernel
+# against its reference (bench.py:99-123); an indexing or masking fault
+# shows as O(0.1). The mask logits of make_inputs are exact in bf16 too, so
+# both sides mask the same keys; the mask pass alone is held to the fp64
+# signs of its bf16 operands outside MASK_MARGIN (products of bf16 values
+# are exact in fp32, as the 3xTF32 products are nearly).
+BF16_TOL = 2e-2
+PEAK_BF16_FLOPS = 989e12   # H100 SXM bf16 tensor cores, dense
+BF16_SHAPES = {"stage1_B1_K307200": (1, 480, 640, ()),
+               "crops_B8_K50176": (8, 224, 224, (3, 6)),
+               "crops_B20_K50176": (20, 224, 224, ()),
+               "stride3_crops_B20_K5625": (20, 75, 75, ())}
+
+
+def to_bf16(args):
+    """The inputs rounded to bf16 (either positional form)."""
+    return [tuple(t.bfloat16() for t in a) if isinstance(a, tuple) else a.bfloat16()
+            for a in args]
+
+
+def bf16_bound(tc, fma, nbytes):
+    """(bound ms, what bounds it) of the bf16 kernel: `tc` operations of
+    products at the bf16 tensor rate plus `fma` on the fp32 pipe (the pos
+    tables), against the bytes over the memory rate."""
+    t_ops = tc / PEAK_BF16_FLOPS + fma / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def xattn_ptxas():
+    """{variant: {"registers", "spill_bytes"}} of the cross-attention's
+    attention and mask passes, fp32 and bf16."""
+    report = {}
+    for sym, regs, spill in ptxas_entries("fused_cross_attention"):
+        kind = next((k for k in ("xattn_partial_kernel", "mask_kernel_bf16", "mask_kernel")
+                     if k in sym), None)
+        if kind is None:
+            continue
+        tail = sym[sym.index(kind) + len(kind):]
+        dtype = "bf16" if "bfloat16" in tail or kind == "mask_kernel_bf16" else "fp32"
+        mode = re.search(r"Li(\d)E", tail)
+        vec = re.findall(r"Lb([01])E", tail)
+        name = (f"{kind.replace('_bf16', '')}<{dtype}" + (f",mode={mode.group(1)}" if mode else "")
+                + (f",vec={vec[-1]}" if vec else "") + ">")
+        report[name] = {"registers": regs, "spill_bytes": spill}
+    return report
+
+
+def check_bf16_case(name, B, h, w, absent=(), form="separable"):
+    """The bf16 kernel against its twin on make_inputs rounded to bf16; the
+    fp32 kernel on the unrounded inputs beside it. Raises on a failure.
+    -> (args, present, results)."""
+    args32, present = make_inputs(B, h, w, absent, form=form)
+    args = to_bf16(args32)
+    got = fused_uoms_cross_attention(*args, present=present)
+    want = fused_uoms_cross_attention_plain(*args, present=present)
+    got32 = fused_uoms_cross_attention(*args32, present=present)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    dev = (got.float() - got32).abs().max().item()
+    scale = got32.abs().max().item()
+    guard_rows = int(((args32[3] @ args32[2]) < 0).all(-1).sum())
+    finite = bool(torch.isfinite(got).all())
+    absent_zero = all(bool((got[b] == 0).all()) for b in absent)
+    ok = (got.dtype == torch.bfloat16 and err <= BF16_TOL and finite and absent_zero
+          and guard_rows > 0)
+    del got, want, got32, args32
+    sync_print(f"bf16_check {name} {form}: max_abs_err={err:.3e} (vs the bf16 twin, "
+               f"tol={BF16_TOL:.0e}) vs_fp32_kernel={dev:.3e} (output scale {scale:.3f}) "
+               f"guard_rows={guard_rows} finite={finite} absent_zero={absent_zero}")
+    if not ok:
+        raise AssertionError(f"bf16 kernel disagrees with its twin at {name} {form}")
+    return args, present, {"max_abs_err": err, "vs_fp32_kernel": dev}
+
+
+def bf16_check_phase():
+    """19. the bf16 kernel: against its twin at BF16_SHAPES in both
+    positional forms, the mask pass alone on bf16 operands, tile skipping
+    equal to dense (torch.equal), kernel / twin / fp32 kernel / bound ms and
+    ptxas registers. -> {case: results}."""
+    results = {"ptxas": xattn_ptxas()}
+    for kname, r in results["ptxas"].items():
+        sync_print(f"bf16_check ptxas {kname}: registers={r['registers']} "
+                   f"spill_bytes={r['spill_bytes']}")
+    for name, (B, h, w, absent) in BF16_SHAPES.items():
+        r = results[name] = {}
+        for form in FORMS:
+            args, present, r[form] = check_bf16_case(name, B, h, w, absent, form)
+            if form == "separable":
+                args32 = make_inputs(B, h, w, absent)[0]
+                ms = time_in_turns({
+                    "bf16": lambda: fused_uoms_cross_attention(*args, present=present),
+                    "fp32": lambda: fused_uoms_cross_attention(*args32, present=present)})
+                plain_ms = time_ms(lambda: fused_uoms_cross_attention_plain(
+                    *args, present=present), warmup=1, reps=3)
+                tc, fma, nbytes = work(args, present)
+                bound_ms, bound_by = bf16_bound(tc, fma, nbytes)
+                r[form].update(ms=ms["bf16"], fp32_kernel_ms=ms["fp32"], plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, gflop=(tc + fma) / 1e9,
+                               gbytes=nbytes / 1e9)
+                sync_print(f"bf16_check time {name}: kernel_ms={ms['bf16']:.3f} "
+                           f"fp32_kernel_ms={ms['fp32']:.3f} twin_ms={plain_ms:.3f} "
+                           f"bound_ms={bound_ms:.4f} ({bound_by}; products {tc / 1e9:.1f} "
+                           f"GFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, pos tables "
+                           f"{fma / 1e9:.2f} GFLOP at {PEAK_FP32_FLOPS / 1e12:.0f}, "
+                           f"{nbytes / 1e9:.3f} GB) share_of_bound={bound_ms / ms['bf16']:.3f}")
+                del args32
+            del args, present
+            torch.cuda.empty_cache()
+        if name != "crops_B8_K50176":
+            r["mask"] = check_mask_case(name, B, h * w, absent, dtype=torch.bfloat16)
+    # tile skipping in bf16: equal to dense, timed on concentrated masks
+    for name, (B, h, w, absent, guards, conc) in TILE_SKIP_CASES.items():
+        if not conc:
+            continue
+        args32, present = concentrated_inputs(B, h, w, absent, guards)
+        args = to_bf16(args32)
+        call = lambda **kw: fused_uoms_cross_attention(*args, present=present, **kw)
+        dense, skip = call(), call(tile_skip=True)
+        equal = torch.equal(skip, dense)
+        err = (skip.float() - fused_uoms_cross_attention_plain(
+            *args, present=present, tile_skip=True).float()).abs().max().item()
+        share, occ = skipped_share(args32[3], args32[2], present)
+        del dense, skip
+        ms = time_in_turns({"skip": lambda: call(tile_skip=True), "dense": call})
+        plain_ms = time_ms(lambda: fused_uoms_cross_attention_plain(
+            *args, present=present, tile_skip=True), warmup=1, reps=3)
+        tc, fma, nbytes = work(args, present, occ)
+        bound_ms, bound_by = bf16_bound(tc, fma, nbytes)
+        results["tile_skip_" + name] = dict(
+            equal_to_dense=equal, max_abs_err=err, skipped_share=share, ms=ms["skip"],
+            dense_ms=ms["dense"], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        sync_print(f"bf16_check tile_skip {name}: equal_to_dense={equal} max_abs_err={err:.3e} "
+                   f"(vs the twin) skipped_share={share:.4f} kernel_ms skip={ms['skip']:.3f} "
+                   f"dense={ms['dense']:.3f} twin_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} "
+                   f"({bound_by})")
+        if not (equal and err <= BF16_TOL):
+            raise AssertionError(f"bf16 tile skipping disagrees at {name}")
+        del args, args32, present, occ
+        torch.cuda.empty_cache()
+    return results
+
+
+def surface_deviation(out32, out16):
+    """The bf16 model surface against fp32 on the same weights and input,
+    as the JAX package's tests/test_factory.py:170-176 measures it: max
+    |a - b| over the fp32 scale, and the sign agreement where |a| > 0.1 of
+    the scale; for pred_logits, mask_embed and the masks mask_embed .
+    mask_features. Logits that are the same constant everywhere (the
+    decisive weights zero the class kernel) have no scale and are left out."""
+    masks = lambda o: torch.einsum("bqc,bhwc->bqhw", o["mask_embed"].float(),
+                                   o["mask_features"].float())
+    r = {}
+    for key, a, b in (("pred_logits", out32["pred_logits"], out16["pred_logits"].float()),
+                      ("mask_embed", out32["mask_embed"], out16["mask_embed"].float()),
+                      ("pred_masks", masks(out32), masks(out16))):
+        if bool((a == a.flatten()[0]).all()):
+            continue
+        scale = a.abs().max()
+        conf = a.abs() > 0.1 * scale
+        r[key] = {"max_dev_of_scale": ((a - b).abs().max() / scale).item(),
+                  "sign_agreement": (a[conf].sign() == b[conf].sign()).float().mean().item()}
+    return r
+
+
+def label_agreement(a, b):
+    """How far two label images [B, H, W] (0 background) agree, whatever
+    their numbering: the share of pixels on which they agree about
+    foreground, and the mean over a's instances of the best IoU with an
+    instance of b (1 when b has the same segments)."""
+    fg = ((a > 0) == (b > 0)).float().mean().item()
+    best = []
+    for x, y in zip(a, b):
+        V = int(max(x.max(), y.max())) + 1
+        inter = torch.bincount((x.long() * V + y.long()).flatten(), minlength=V * V)
+        inter = inter.reshape(V, V)[1:, 1:].double()
+        area_x = torch.bincount(x.flatten().long(), minlength=V)[1:].double()
+        area_y = torch.bincount(y.flatten().long(), minlength=V)[1:].double()
+        iou = inter / (area_x[:, None] + area_y[None, :] - inter).clamp_min(1)
+        best += iou.amax(1)[area_x > 0].tolist() if iou.numel() else []
+    return {"foreground": fg, "mean_best_iou": statistics.mean(best) if best else 1.0}
+
+
+def run_counted(pred, image, xyz):
+    """(stage-1 result, refined labels, launches stage 1, stage 2, bf16
+    launches stage 1, stage 2) of one driven frame, counts zeroed before."""
+    zero_counts()
+    s1 = pred.stage1(image, xyz)
+    torch.cuda.synchronize()
+    n1, b1 = fused_uoms_cross_attention.launches, fused_uoms_cross_attention.bf16_launches
+    refined = pred.refine(s1)
+    torch.cuda.synchronize()
+    return (s1, refined, n1, fused_uoms_cross_attention.launches - n1, b1,
+            fused_uoms_cross_attention.bf16_launches - b1)
+
+
+def compare_dtypes(tag, p32, p16, image, xyz):
+    """bf16 predictor against fp32 on the same weights and frames: launches
+    (6 + 6 a frame, all bf16), surface deviation, label agreement, crops,
+    e2e in turns (fp32, bf16, bf16, fp32) and the bf16 breakdown. -> results."""
+    s1, refined, n1, n2, b1, b2 = run_counted(p16, image, xyz)
+    crops = int(sum(int(c.present.sum()) for c in s1.crops))
+    assert (n1, n2, b1, b2) == (6, 6, 6, 6), f"{tag}: launches {n1} + {n2}, bf16 {b1} + {b2}"
+    assert crops >= 1, f"{tag}: stage 1 gave no crop, so stage 2 did not run"
+    B = image.shape[0]
+    assert s1.labels.shape == refined.shape == (B, 480, 640)
+    assert s1.labels.dtype == refined.dtype == torch.int32
+    l32, r32 = p32(image, xyz)
+    s32 = p32.stage1(image, xyz)
+    crops32 = int(sum(int(c.present.sum()) for c in s32.crops))
+    with torch.inference_mode():
+        o32, o16 = (p.model(image, xyz, light=True) for p in (p32, p16))
+    finite = all(bool(torch.isfinite(o16[k]).all())
+                 for k in ("pred_logits", "mask_embed", "mask_features"))
+    assert finite and o16["pred_logits"].dtype == torch.bfloat16, f"{tag}: bf16 outputs"
+    dev = surface_deviation(o32, o16)
+    del o32, o16
+    agree = {"labels": label_agreement(l32, s1.labels),
+             "refined": label_agreement(r32, refined)}
+    e2e = {}
+    for name, pred in (("fp32", p32), ("bf16", p16), ("bf16", p16), ("fp32", p32)):
+        e2e.setdefault(name, []).extend(median_ms(lambda: pred(image, xyz))[1])
+    med = {k: statistics.median(v) for k, v in e2e.items()}
+    with torch.inference_mode():
+        parts = {"stage1_backbone": lambda: p16.model.pretrained_backbone(image, xyz),
+                 "stage1_network": lambda: p16.model(image, xyz, light=True),
+                 "stage1_total": lambda: p16.stage1(image, xyz),
+                 "refine_total": lambda: p16.refine(s1)}
+        split = {k: median_ms(f)[0] for k, f in parts.items()}
+    sync_print(f"{tag}: launches stage1={n1} stage2={n2} (bf16 {b1} + {b2}) crops bf16={crops} "
+               f"fp32={crops32} for {B} frame(s); surface vs fp32 "
+               + " ".join(f"{k} dev={v['max_dev_of_scale']:.3e} sign={v['sign_agreement']:.4f}"
+                          for k, v in dev.items())
+               + "; agreement with fp32 (foreground share / mean best IoU) "
+               + " ".join(f"{k}={v['foreground']:.4f}/{v['mean_best_iou']:.4f}"
+                          for k, v in agree.items())
+               + f"; e2e_ms median of 6 bf16={med['bf16']:.1f} fp32={med['fp32']:.1f} (per frame "
+               f"{med['bf16'] / B:.1f} / {med['fp32'] / B:.1f}); bf16 breakdown median ms "
+               + " ".join(f"{k}={v:.1f}" for k, v in split.items()))
+    return dict(launches=n1 + n2, bf16_launches=b1 + b2, crops_bf16=crops, crops_fp32=crops32,
+                surface=dev, label_agreement=agree, e2e_ms=med, breakdown_ms=split,
+                runs_ms=e2e)
+
+
+def bf16_main_phase(results, weights=None):
+    """20. the two-stage MSMFormer in bf16 at full width through the factory
+    (bf16=True), on the decisive weights of main, at B=1 and B=8 frames,
+    against fp32 on the same weights (compare_dtypes); the bf16 path with
+    decoder.tile_skip against the dense bf16 path (compare_paths); one UCN
+    frame with bf16 SEGNETs (launches, labels, e2e beside fp32); with
+    --weights, the two-stage comparison on those weights. -> launches of the
+    bf16 kernel in the B=1 dense and tile-skipping frames."""
+    image, xyz = synthetic_rgbd(seed=0)
+    p32, p16 = decisive_predictor(seed=0), decisive_predictor(seed=0, bf16=True)
+    results["B1"] = compare_dtypes("bf16_main B1", p32, p16, image, xyz)
+    launches = results["B1"]["bf16_launches"]
+    scenes = [synthetic_rgbd(seed=i) for i in range(8)]
+    img8, xyz8 = (torch.cat([sc[i] for sc in scenes]) for i in (0, 1))
+    del scenes
+    results["B8"] = compare_dtypes("bf16_main B8", p32, p16, img8, xyz8)
+    del img8, xyz8
+    torch.cuda.empty_cache()
+    skip = decisive_predictor(seed=0, bf16=True, tile_skip=True)
+    skip_launches, log, _ = compare_paths("bf16_main tile_skip", p16, skip, image, xyz)
+    results["tile_skip"] = dict(launches=skip_launches, skipped_share=[e[0] for e in log])
+    del p32, p16, skip, log
+    torch.cuda.empty_cache()
+
+    u32 = decisive_ucn_predictor(image, xyz, seed=0)
+    u16 = decisive_ucn_predictor(image, xyz, seed=0, bf16=True)
+    zero_counts()
+    s1 = u16.stage1(image, xyz)
+    torch.cuda.synchronize()
+    n1 = kernel_counts()
+    refined = u16.refine(s1)
+    torch.cuda.synchronize()
+    n2 = {k: v - n1[k] for k, v in kernel_counts().items()}
+    crops = int(sum(int(c.present.sum()) for c in s1.crops))
+    want = {"fused_uoms_cross_attention": 0, "fps_seeds": 1, "mean_shift_seeds": 0,
+            "connected_components": 1}
+    assert n1 == want and n2 == want, f"ucn bf16: launches {n1} + {n2}"
+    assert crops >= 1 and refined.shape == (1, 480, 640) and refined.dtype == torch.int32
+    with torch.inference_mode():
+        f16 = u16.network(image, xyz)
+        f32 = u32.network(image, xyz)
+    emb_dev = (f16.float() - f32).abs().max().item()
+    l32, r32 = u32(image, xyz)
+    e2e = {}
+    for name, pred in (("fp32", u32), ("bf16", u16), ("bf16", u16), ("fp32", u32)):
+        e2e.setdefault(name, []).extend(median_ms(lambda: pred(image, xyz))[1])
+    med = {k: statistics.median(v) for k, v in e2e.items()}
+    results["ucn"] = dict(crops=crops, clusters=int(s1.n_clusters[0]), embedding_dev=emb_dev,
+                          label_agreement=label_agreement(r32, refined), e2e_ms=med,
+                          launches_stage1=n1, launches_stage2=n2)
+    sync_print(f"bf16_main ucn: features {f16.dtype}, max |bf16 - fp32| {emb_dev:.3e}; launches "
+               f"stage1={n1} stage2={n2}; stage1_clusters={int(s1.n_clusters[0])} "
+               f"present_crops={crops}; refined labels against fp32 (foreground share / mean "
+               f"best IoU) {results['ucn']['label_agreement']['foreground']:.4f}/"
+               f"{results['ucn']['label_agreement']['mean_best_iou']:.4f}; e2e_ms median of 6 "
+               f"bf16={med['bf16']:.1f} fp32={med['fp32']:.1f}")
+    del u32, u16, s1, refined, f16, f32
+    torch.cuda.empty_cache()
+    if weights is not None:
+        variables = load_npz_variables(weights)
+        if "scene" in variables:
+            image, xyz = (torch.from_numpy(variables["scene"][k]).cuda() for k in ("image", "xyz"))
+        preds = [build_two_stage_predictor(variables=variables, variables_crop=variables,
+                                           bf16=bf16) for bf16 in (False, True)]
+        del variables
+        results["trained"] = compare_dtypes("bf16_main trained", *preds, image, xyz)
+        del preds
+        torch.cuda.empty_cache()
+    return launches, skip_launches
+
+
+def fps_groups_check(results):
+    """F3: FPS at B=160 crops of 224^2 (8 frames x 20 crops), which one
+    launch cannot hold: grouped launches (fps_plan's groups); the images on
+    both sides of each group boundary held to the fp64 argmax chain, and
+    launched together in one call, which gives the same indices."""
+    B, N = 160, 224 * 224
+    X, first, groups = clustered_unit_vectors(B, N, seed=2)
+    plan = fps_plan(B, N, **device_limits(X.device))
+    fps_seeds.launches = 0
+    seeds, idx = fps_seeds(X, first, SEEDS)
+    torch.cuda.synchronize()
+    n_launches = fps_seeds.launches
+    edge = sorted({b for _, g1 in plan["groups"][:-1] for b in (g1 - 1, g1)})
+    sub = torch.tensor(edge, device="cuda")
+    r = fps_gate(X[sub], first[sub], seeds[sub], idx[sub], groups)
+    alone = fps_seeds(X[sub].contiguous(), first[sub], SEEDS)[1]
+    same = torch.equal(alone, idx[sub])
+    ms = time_ms(lambda: fps_seeds(X, first, SEEDS), warmup=1, reps=3)
+    results["fps_groups_B160_N50176"] = dict(groups=plan["groups"], launches=n_launches,
+                                             boundary_images=edge, max_gap=r["max_gap"],
+                                             same_as_one_launch=same, ms=ms)
+    sync_print(f"ucn_check fps_groups B160_N50176: groups={plan['groups']} launches={n_launches} "
+               f"boundary images {edge}: max_gap_vs_fp64={r['max_gap']:.3e} "
+               f"(tol={FPS_TOL:.0e}) seeds_bit_exact={r['bit_exact']} first_ok={r['starts']} "
+               f"ties_to_lowest={r['tie_ok']} same_indices_as_one_launch={same} kernel_ms={ms:.3f}")
+    if not (r["ok"] and same and n_launches == len(plan["groups"]) > 1):
+        raise AssertionError("grouped FPS launches disagree with the fp64 chain")
+    del X, first, seeds, idx
+    torch.cuda.empty_cache()
+
+
+def seeds_200_check(results):
+    """F4: 200 seeds (two seed blocks of the climbing kernel, a 256-thread
+    connected-components block) at B=2/N=50,176: FPS per step against fp64,
+    the climbing against fp64 (CLIMB_TOL), the components equal to the
+    numpy sweep."""
+    S, B, N = 200, 2, 224 * 224
+    X, first, groups = clustered_unit_vectors(B, N, seed=3)
+    seeds, idx, gap = check_fps("seeds200_B2_N50176", X, first, groups, S=S)
+    err = check_climb("seeds200_B2_N50176", X, first, seeds, idx, S=S)
+    Z = mean_shift_seeds(X, first, KAPPA, S, ITERS)[0]
+    within = seed_adjacency(Z, EPSILON)
+    cc = connected_components_sweep(within)
+    equal = torch.equal(cc.cpu(), connected_components_plain(within).cpu())
+    results["seeds200_B2_N50176"] = dict(fps_max_gap=gap, climb_max_abs_err=err,
+                                         components_equal=equal,
+                                         components=int(cc.max()) + 1)
+    sync_print(f"ucn_check seeds200_B2_N50176: connected components equal to the numpy sweep="
+               f"{equal} ({int(cc.max()) + 1} components at most)")
+    if not equal:
+        raise AssertionError("connected components at 200 seeds disagree with the numpy sweep")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     p.add_argument("--weights", help="a .npz export of one MSMFormer release "
@@ -1533,7 +1966,9 @@ def main(argv=None):
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("tf32: disabled for matmul and cudnn (fp32 reference numerics)", flush=True)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print("tf32: disabled for matmul and cudnn (fp32 reference numerics); bf16 matmuls "
+          "accumulate in fp32", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -1604,6 +2039,9 @@ def main(argv=None):
     # 5-7. the UCN path
     t0 = time.perf_counter()
     ucn_cases, ucn_results = ucn_check_phase()
+    seed_limits = {}
+    fps_groups_check(seed_limits)
+    seeds_200_check(seed_limits)
     phase_done("ucn_check", t0)
     t0 = time.perf_counter()
     ucn_time_phase(ucn_cases, ucn_results)
@@ -1659,6 +2097,15 @@ def main(argv=None):
     t0 = time.perf_counter()
     cc_results = cc_check_phase(cc_spy)
     phase_done("cc_check", t0)
+
+    # 19-20. bf16 serving
+    t0 = time.perf_counter()
+    bf16_results = bf16_check_phase()
+    phase_done("bf16_check", t0)
+    t0 = time.perf_counter()
+    bf16_main = {}
+    bf16_launches, bf16_skip_launches = bf16_main_phase(bf16_main, opts.weights)
+    phase_done("bf16_main", t0)
 
     s1r = results["stage1_B1_K307200"]["separable"]
     kernels = [{
@@ -1761,8 +2208,33 @@ def main(argv=None):
                       if k.startswith("mha" if name.startswith("masked") else "fused")},
             "shapes": r,
         })
+    b1 = bf16_results["stage1_B1_K307200"]["separable"]
+    bk = bf16_results["tile_skip_stage1_B1_K307200_concentrated"]
+    for name, line, entry, launched in (
+            ("fused_uoms_cross_attention(bf16)", 334, b1, bf16_launches),
+            ("fused_uoms_cross_attention(bf16, tile_skip=True)", 483, bk, bf16_skip_launches)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "unseenobjectswithmeanshift_torch/csrc/fused_cross_attention.cu",
+            "design": "xattn_partial_kernel<bf16>: the fp32 kernel's launch plan, mask words, "
+                      "guard and tile skipping; every product once on mma.sync m16n8k16 .bf16 "
+                      "with fp32 accumulation; k^, p and v rounded to bf16 as the JAX kernel",
+            "replaces": f"unseenobjectswithmeanshift_tpu/ops/fused_cross_attention.py:{line}",
+            "launches": launched,
+            "max_abs_err": (max(bf16_results[n][f]["max_abs_err"] for n in BF16_SHAPES
+                                for f in FORMS) if line == 334 else bk["max_abs_err"]),
+            "max_abs_err_of": "bf16 output against the bf16 twin (tol 2e-2)",
+            **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "fp32_kernel_ms": entry.get("fp32_kernel_ms", entry.get("dense_ms")),
+            "ptxas": {k: v for k, v in bf16_results["ptxas"].items() if "bf16" in k},
+            "shapes": {k: v for k, v in bf16_results.items() if k != "ptxas"},
+            "main_path": bf16_main,
+        })
     print(json.dumps({"presets_main": preset_results, "grouped_towers": grouped_results,
-                      "stream_main": stream_results, "stage1_no_sync": no_sync}), flush=True)
+                      "stream_main": stream_results, "stage1_no_sync": no_sync,
+                      "seed_limits": seed_limits}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

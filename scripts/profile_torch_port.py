@@ -17,7 +17,11 @@
 4. Eight full-width frames through each predictor (MSMFormer and UCN with
    the defaults) back to back with ``__call__`` and with ``stream`` at depth
    1 and 2: wall time, device busy time and idle share of each run.
-5. With --weights (a .npz export of one MSMFormer release,
+5. bf16 (bf16=True, the JAX package's serving dtype): the cross-attention's
+   bf16 passes at the stage-1 and crop shapes, the MSMFormer frame of 2. in
+   bf16, both dtypes on 8 frames as one B=8 batch, and the UCN frame of 3.
+   with bf16 SEGNETs.
+6. With --weights (a .npz export of one MSMFormer release,
    scripts/export_release_npz.py), the MSMFormer frame of 2. on those weights
    (paired with themselves for stage 2; on the export's rendered scene if it
    holds one), dense and with decoder.tile_skip: the cross-attention's
@@ -86,13 +90,18 @@ def main(argv=None):
         sys.exit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     result = {"device": torch.cuda.get_device_name(0)}
 
     for name, (B, h, w, absent, form) in {
             "stage1_B1_K307200": (1, 480, 640, (), "separable"),
             "stage1_B1_K307200_general_pos": (1, 480, 640, (), "general"),
-            "crops_B8_K50176": (8, 224, 224, (3, 6), "separable")}.items():
+            "crops_B8_K50176": (8, 224, 224, (3, 6), "separable"),
+            "stage1_B1_K307200_bf16": (1, 480, 640, (), "separable"),
+            "crops_B8_K50176_bf16": (8, 224, 224, (3, 6), "separable")}.items():
         args, present = chip_smoke.make_inputs(B, h, w, absent, form=form)
+        if name.endswith("_bf16"):
+            args = chip_smoke.to_bf16(args)
         for _ in range(3):
             fused_uoms_cross_attention(*args, present=present)
         torch.cuda.synchronize()
@@ -108,7 +117,16 @@ def main(argv=None):
     image, xyz = chip_smoke.synthetic_rgbd(seed=0)
     pred = chip_smoke.decisive_predictor(seed=0)
     profile_frame("e2e", lambda: pred(image, xyz), result)
-    del pred
+    pred16 = chip_smoke.decisive_predictor(seed=0, bf16=True)
+    profile_frame("e2e_bf16", lambda: pred16(image, xyz), result)
+    scenes = [chip_smoke.synthetic_rgbd(seed=i) for i in range(8)]
+    img8, xyz8 = (torch.cat([sc[i] for sc in scenes]) for i in (0, 1))
+    profile_frame("e2e_B8", lambda: pred(img8, xyz8), result)
+    profile_frame("e2e_B8_bf16", lambda: pred16(img8, xyz8), result)
+    del pred, pred16, img8, xyz8
+    u16 = chip_smoke.decisive_ucn_predictor(image, xyz, seed=0, bf16=True)
+    profile_frame("ucn_bf16", lambda: u16(image, xyz), result)
+    del u16
     for tag, use_pallas in (("ucn", False), ("ucn_use_pallas", True)):
         cfg = get_config()
         cfg.mean_shift.use_pallas = use_pallas
@@ -116,7 +134,6 @@ def main(argv=None):
         profile_frame(tag, lambda: pred(image, xyz), result)
         del pred
     if not opts.no_stream:
-        scenes = [chip_smoke.synthetic_rgbd(seed=i) for i in range(8)]
         for kind in ("msmformer", "ucn"):
             pred = (chip_smoke.decisive_predictor(seed=0) if kind == "msmformer" else
                     chip_smoke.decisive_ucn_predictor(*scenes[0], seed=0))

@@ -33,7 +33,7 @@ from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
     masked_hypersphere_attention, masked_hypersphere_attention_plain,
 )
 from chip_smoke import (
-    CLIMB_TOL, FPS_TOL, decisive_predictor, decisive_ucn_predictor, mask_mismatches,
+    BF16_TOL, CLIMB_TOL, FPS_TOL, decisive_predictor, decisive_ucn_predictor, mask_mismatches,
 )
 
 pytestmark = pytest.mark.cuda
@@ -235,8 +235,8 @@ def test_mean_shift_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fps_seeds(X, torch.zeros(2, dtype=torch.int32), 10)
     with pytest.raises(TypeError):
         fps_seeds(X, torch.zeros(2, device=cuda), 10)
-    with pytest.raises(ValueError):                       # a warpgroup per 64 seeds, 2 at most
-        mean_shift_seeds(X, 0, 20.0, 129, 2)
+    with pytest.raises(ValueError, match="1024"):         # blocks of 128 seeds, 1024 at most
+        mean_shift_seeds(X, 0, 20.0, 1025, 2)
 
 
 def tabletop_scene(seed, h=64, w=64):
@@ -603,7 +603,7 @@ def test_fps_persistent_kernel_cases(cuda, B, N, S, first):
 
 
 @pytest.mark.parametrize("B,N,S", [(1, 4099, 1), (2, 3001, 37), (1, 50_177, 100),
-                                   (1, 2000, 128), (20, 5003, 100)])
+                                   (1, 2000, 128), (20, 5003, 100), (2, 3001, 200)])
 @pytest.mark.parametrize("rows", ["clustered", "random"])
 def test_climb_tensor_core_kernel_cases(cuda, B, N, S, rows):
     # N not a multiple of the 64-key tile; random rows make the TF32
@@ -624,7 +624,7 @@ def test_climb_tensor_core_kernel_cases(cuda, B, N, S, rows):
 
 # The UCN-family configurations and the serving entry points.
 
-@pytest.mark.parametrize("B,N,S", [(1, 4099, 100), (3, 1000, 37)])
+@pytest.mark.parametrize("B,N,S", [(1, 4099, 100), (3, 1000, 37), (2, 3001, 200)])
 def test_d128_kernels_match_fp64(cuda, B, N, S):
     """FPS and climbing at the 'cat' embedding's d = 128 (64 and 128 take
     the same gates; other widths raise)."""
@@ -642,7 +642,7 @@ def test_d128_kernels_match_fp64(cuda, B, N, S):
         fps_seeds(torch.zeros(1, 100, 96, device=cuda), 0, 10)
 
 
-@pytest.mark.parametrize("B,S", [(1, 100), (20, 100), (3, 1), (2, 128)])
+@pytest.mark.parametrize("B,S", [(1, 100), (20, 100), (3, 1), (2, 128), (2, 200), (1, 1024)])
 def test_connected_components_kernel_equals_the_sweep(cuda, B, S):
     from unseenobjectswithmeanshift_torch.ops.mean_shift import (
         connected_components_plain, connected_components_sweep, seed_adjacency,
@@ -655,8 +655,8 @@ def test_connected_components_kernel_equals_the_sweep(cuda, B, S):
     got = connected_components_sweep(within)
     assert connected_components_sweep.launches == before + 1
     assert torch.equal(got.cpu(), connected_components_plain(within).cpu())
-    with pytest.raises(ValueError):
-        connected_components_sweep(torch.ones(1, 129, 129, dtype=torch.uint8, device=cuda))
+    with pytest.raises(ValueError, match="1024"):
+        connected_components_sweep(torch.ones(1, 1025, 1025, dtype=torch.uint8, device=cuda))
 
 
 @pytest.mark.parametrize("h,w", [(75, 75), (160, 214)])
@@ -681,7 +681,9 @@ def test_stage1_queues_without_a_host_sync(cuda):
     image, xyz = torch.from_numpy(image).to(cuda), torch.from_numpy(xyz).to(cuda)
     cfg = get_config()
     cfg.mean_shift.num_seeds, cfg.test.max_instances, cfg.test.crop_size = 12, 4, 32
-    preds = [decisive_predictor(seed=0), decisive_ucn_predictor(image, xyz, seed=0, cfg=cfg)]
+    preds = [decisive_predictor(seed=0), decisive_predictor(seed=0, bf16=True),
+             decisive_ucn_predictor(image, xyz, seed=0, cfg=cfg),
+             decisive_ucn_predictor(image, xyz, seed=0, cfg=cfg, bf16=True)]
     for pred in preds:
         pred.stage1(image, xyz)
     torch.cuda.synchronize()
@@ -697,9 +699,112 @@ def test_stream_on_cuda_equals_call(cuda):
     scenes = [tuple(torch.from_numpy(a).to(cuda) for a in tabletop_scene(s)) for s in range(3)]
     cfg = get_config()
     cfg.mean_shift.num_seeds, cfg.test.max_instances, cfg.test.crop_size = 12, 4, 32
-    for pred in (decisive_predictor(seed=0),
+    for pred in (decisive_predictor(seed=0), decisive_predictor(seed=0, bf16=True),
                  decisive_ucn_predictor(*scenes[0], seed=0, cfg=cfg)):
         want = [pred(img, xyz) for img, xyz in scenes]
         for depth in (1, 2):
             got = list(pred.stream(iter(scenes), depth=depth))
             assert all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+
+
+# bf16 serving and the seed limits (F3: FPS in groups of images; F4: more
+# than 128 seeds).
+
+def bf16_inputs(seed, B, Q, K):
+    """make_inputs rounded to bf16 (exact mask logits stay exact)."""
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in make_inputs(seed, B, Q, K)]
+
+
+@pytest.mark.parametrize("B,Q,K,present", [(1, 100, 4096, None), (3, 16, 1000, [1, 0, 1]),
+                                           (2, 100, 777, [0, 1]), (2, 128, 64, None),
+                                           (20, 100, 1536, [i % 7 != 3 for i in range(20)])])
+def test_bf16_kernel_matches_twin(cuda, B, Q, K, present):
+    """All inputs bf16: the kernel against its twin on the same inputs
+    (chip_smoke.BF16_TOL); a bf16 output; K not a multiple of 8 takes the
+    element copies."""
+    args = [a.to(cuda) for a in bf16_inputs(1, B, Q, K)]
+    p = None if present is None else torch.tensor(present, dtype=torch.bool, device=cuda)
+    before = fused_uoms_cross_attention.bf16_launches
+    got = fused_uoms_cross_attention(*args, present=p)
+    assert fused_uoms_cross_attention.bf16_launches == before + 1
+    want = fused_uoms_cross_attention_plain(*args, present=p)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=BF16_TOL)
+    assert torch.equal(got, fused_uoms_cross_attention(*args, present=p))   # deterministic
+    skip = fused_uoms_cross_attention(*args, present=p, tile_skip=True)
+    assert torch.equal(skip, got)
+
+
+def test_bf16_kernel_refuses_mixed_dtypes(cuda):
+    args = [torch.from_numpy(a).to(cuda) for a in make_inputs(2, 1, 16, 256)]
+    with pytest.raises(TypeError):
+        fused_uoms_cross_attention(*[a.bfloat16() if i == 1 else a for i, a in enumerate(args)])
+    with pytest.raises(TypeError):
+        fused_uoms_cross_attention(args[0].half(), *args[1:])
+
+
+@pytest.mark.parametrize("B,K", [(1, 4096), (3, 777)])
+def test_bf16_mask_pass_matches_fp64_signs(cuda, B, K):
+    g = torch.Generator(device=cuda).manual_seed(K)
+    me = torch.randn(B, 100, 256, generator=g, device=cuda).bfloat16()
+    mfT = (torch.randn(B, 256, K, generator=g, device=cuda) * 0.5).bfloat16()
+    bits, cnt = mask_pass(me, mfT)
+    r = mask_mismatches(bits, cnt, me, mfT)
+    assert r["bad"] == 0 and r["cnt_ok"]
+
+
+def test_bf16_two_stage_on_cuda(cuda):
+    """bf16=True at the small widths: every cross-attention launch is the
+    bf16 variant, one a layer and stage; the masks within 0.15 of the fp32
+    predictor's scale on the same weights (the decisive weights' class
+    logits are one constant)."""
+    image, xyz = (torch.from_numpy(a).to(cuda) for a in tabletop_scene(1))
+    p32, p16 = decisive_predictor(seed=0), decisive_predictor(seed=0, bf16=True)
+    fused_uoms_cross_attention.launches = fused_uoms_cross_attention.bf16_launches = 0
+    labels, refined = p16(image, xyz)
+    torch.cuda.synchronize()
+    assert fused_uoms_cross_attention.launches == fused_uoms_cross_attention.bf16_launches >= 6
+    assert labels.dtype == refined.dtype == torch.int32
+    with torch.inference_mode():
+        o32, o16 = (p.model(image, xyz, light=True) for p in (p32, p16))
+    a, b = (torch.einsum("bqc,bhwc->bqhw", o["mask_embed"].float(), o["mask_features"].float())
+            for o in (o32, o16))
+    assert o16["pred_logits"].dtype == o16["mask_embed"].dtype == torch.bfloat16
+    assert float((a - b).abs().max() / a.abs().max()) < 0.15
+
+
+def test_fps_groups_equal_one_launch(cuda, monkeypatch):
+    """With the shared memory of a block cut to 2 KB, B=20 images of 5,003
+    rows do not fit one launch: fps_plan groups whole images, one launch a
+    group, and the seeds equal those of one launch, bit for bit."""
+    from unseenobjectswithmeanshift_torch.ops import mean_shift_kernels as msk
+
+    X = torch.from_numpy(unit_rows(41, 20, 5003)).to(cuda)
+    first = torch.arange(20, dtype=torch.int32, device=cuda) * 13
+    want = fps_seeds(X, first, 30)
+    limits = dict(device_limits(cuda), smem_per_block=2048)
+    groups = fps_plan(20, 5003, **limits)["groups"]
+    assert len(groups) > 1
+    monkeypatch.setattr(msk, "device_limits", lambda device: limits)
+    before = fps_seeds.launches
+    got = fps_seeds(X, first, 30)
+    torch.cuda.synchronize()
+    assert fps_seeds.launches == before + len(groups)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("C", [24, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_feature_channels_in_eights(cuda, C, dtype):
+    """C a multiple of 8 but not of 16: bf16's last k16 step reads zeroed
+    channels; fp32 against fp64 (2e-5), bf16 against its twin."""
+    args = [torch.from_numpy(a).to(cuda, dtype) for a in make_inputs(3, 2, 100, 1000, C=C)]
+    got = fused_uoms_cross_attention(*args)
+    if dtype == torch.float32:
+        want = fused_uoms_cross_attention_plain(*[a.double() for a in args])
+        np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+    else:
+        want = fused_uoms_cross_attention_plain(*args)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   atol=BF16_TOL)

@@ -71,9 +71,10 @@ def test_fps_plan_slices_cross_images_at_b20():
 
 
 def test_fps_plan_refuses_distances_that_do_not_fit():
-    # 60,000 rows a block: 240 KB of running distances
+    # one image of 8,000,000 rows: 60,607 rows a block, 242 KB of running
+    # distances (images that fit alone are launched in groups instead)
     with pytest.raises(ValueError):
-        fps_plan(132, 60_000, SMS, SMEM_PER_BLOCK)
+        fps_plan(1, 8_000_000, SMS, SMEM_PER_BLOCK)
     with pytest.raises(ValueError):
         fps_plan(0, 10, SMS, SMEM_PER_BLOCK)
 

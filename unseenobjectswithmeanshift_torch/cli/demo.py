@@ -7,7 +7,7 @@ run two-stage inference per image and save '-label.png' outputs.
 
   python -m unseenobjectswithmeanshift_torch.cli.demo --imgdir DIR \\
       [--checkpoint msmformer.pth --checkpoint-crop msmformer_crop.pth] \\
-      [--config PRESET] [--no-depth] [--key-stride 2] [--out DIR] [--device cuda]
+      [--config PRESET] [--no-depth] [--key-stride 2] [--bf16] [--out DIR] [--device cuda]
 
 The flags are the JAX demo's, plus --device (default cuda). A checkpoint is a
 reference .pth or an .npz written by scripts/export_release_npz.py; without
@@ -25,6 +25,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from ..pipeline.factory import build_two_stage_predictor
 from ..utils.preprocess import fov_intrinsics, pad_to_multiple, read_sample
@@ -68,7 +69,8 @@ def main(argv=None):
     p.add_argument("--camera-params", default=None)
     p.add_argument("--no-depth", action="store_true")
     p.add_argument("--no-refine", action="store_true")
-    p.add_argument("--bf16", action="store_true", help="not ported: raises")
+    p.add_argument("--bf16", action="store_true",
+                   help="compute in bf16 (the JAX package's serving dtype)")
     p.add_argument("--key-stride", type=int, default=1,
                    help="opt-in fast serving: subsample attention keys "
                         "(NOT the parity configuration)")
@@ -77,6 +79,10 @@ def main(argv=None):
     p.add_argument("--out", default=None, help="directory for -label.png outputs")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = p.parse_args(argv)
+    # fp32 runs without TF32, bf16 accumulates its products in fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     import cv2
 

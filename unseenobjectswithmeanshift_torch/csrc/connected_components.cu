@@ -15,7 +15,8 @@
 // copy and one sync per clustering call, 0.2 ms at B = 1 and 1.9 ms at
 // B = 20 on the H100), so that UCN's stage 1 queues without a sync.
 //
-// Design: one block per image, one thread per seed (S <= 128). The sweep is
+// Design: one block per image, one thread per seed (S <= 1024; the block
+// takes S rounded up to a warp, 128 threads at the presets' S = 100). The sweep is
 // sequential in i, as the reference's is; each step is block-parallel over
 // the row: the row's labelled members count into a shared histogram
 // (integer atomics, so the order does not matter), a block argmax takes the
@@ -28,8 +29,8 @@
 
 namespace {
 
-constexpr int MAX_SEEDS = 128;
-constexpr int WARPS = MAX_SEEDS / 32;
+constexpr int MAX_SEEDS = 1024;
+constexpr int MAX_WARPS = MAX_SEEDS / 32;
 
 // (count, label): larger count first, then the smaller label
 __device__ __forceinline__ bool better(int c, int l, int bc, int bl) {
@@ -40,8 +41,8 @@ __global__ void __launch_bounds__(MAX_SEEDS) cc_sweep_kernel(const uint8_t* __re
                                                              int* __restrict__ labels, int S) {
   __shared__ int lab[MAX_SEEDS];
   __shared__ int cnt[MAX_SEEDS];
-  __shared__ int red_c[WARPS], red_l[WARPS];
-  const int b = blockIdx.x, t = threadIdx.x;
+  __shared__ int red_c[MAX_WARPS], red_l[MAX_WARPS];
+  const int b = blockIdx.x, t = threadIdx.x, warps = blockDim.x / 32;
   const uint8_t* w = within + (size_t)b * S * S;
   lab[t] = -1;
   int K = 0;   // labels opened so far (every thread keeps the same count)
@@ -65,8 +66,7 @@ __global__ void __launch_bounds__(MAX_SEEDS) cc_sweep_kernel(const uint8_t* __re
     __syncthreads();
     c = red_c[0];
     l = red_l[0];
-#pragma unroll
-    for (int k = 1; k < WARPS; ++k)
+    for (int k = 1; k < warps; ++k)
       if (better(red_c[k], red_l[k], c, l)) { c = red_c[k]; l = red_l[k]; }
     const bool has_labelled = c > 0;
     if (member) lab[t] = has_labelled ? l : K;
@@ -84,10 +84,11 @@ const char* uoms_cc_error_string(int code) { return cudaGetErrorString((cudaErro
 
 // One launch on `stream`: within [B, S, S] u8 (nonzero = adjacent), labels
 // [B, S] i32 (output). Returns 0, or the CUDA error (invalid value for S
-// outside [1, 128]).
+// outside [1, MAX_SEEDS]).
 int uoms_connected_components(const uint8_t* within, int* labels, int B, int S, void* stream) {
   if (B < 1 || S < 1 || S > MAX_SEEDS) return (int)cudaErrorInvalidValue;
-  cc_sweep_kernel<<<B, MAX_SEEDS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(within, labels, S);
+  const int threads = (S + 31) / 32 * 32;
+  cc_sweep_kernel<<<B, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(within, labels, S);
   return (int)cudaGetLastError();
 }
 

@@ -21,7 +21,9 @@
 // .tf32 with fp32 accumulation, each operand split hi/lo and
 // a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi. Two warpgroups, one per 64 seeds
 // (S = 100 runs as 128 rows; a warpgroup whose rows are all past S only
-// copies and splits). Per tile:
+// copies and splits). Each seed climbs on X and on itself alone, so more
+// than 128 seeds (up to MAX_SEEDS) run in blocks of 128: grid
+// (nsplit, B, ceil(S / 128)), one launch as before. Per tile:
 //   - the tile reaches shared memory by cp.async, two stages in a ring (rows
 //     padded to 68 floats, so the split pass reads without bank conflicts);
 //   - all 256 threads split it into two K-major operand layouts: X as
@@ -61,7 +63,8 @@ namespace {
 
 constexpr int TK = 64;           // keys per tile
 constexpr int THREADS = 256;     // two warpgroups
-constexpr int MAX_SEEDS = 128;   // D = 64: one warpgroup per 64 seeds
+constexpr int BLOCK_SEEDS = 128; // D = 64: seeds a block, one warpgroup per 64
+constexpr int MAX_SEEDS = 1024;  // seeds a call (blocks of BLOCK_SEEDS, or of 64 at D = 128)
 constexpr int WD = 64;           // dims a warpgroup takes (D = 128: half of them)
 
 // dynamic shared memory of climb_partial_kernel<D>, in bytes: the raw ring,
@@ -71,7 +74,7 @@ template <int D>
 constexpr int SMEM_BYTES = (int)sizeof(float) *
                            (2 * TK * (D + 4) + 4 * TK * D + (D == 128 ? 2 * 64 * TK : 0));
 
-// grid (nsplit, B, 1) at D = 64, (nsplit, B, ceil(S / 64)) at D = 128;
+// grid (nsplit, B, ceil(S / 128)) at D = 64, (nsplit, B, ceil(S / 64)) at D = 128;
 // partial [B, nsplit, S, D].
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1) climb_partial_kernel(
@@ -91,7 +94,7 @@ __global__ void __launch_bounds__(THREADS, 1) climb_partial_kernel(
   const int wg = tid >> 7;
   const int wr = ((tid >> 5) & 3) * 16;   // this warp's 16 rows of the warpgroup's 64
   // seeds s0 .. s0 + 63 and dims dw .. dw + WD - 1 of this warpgroup
-  const int s0 = SPLIT_D ? blockIdx.z * 64 : wg * 64;
+  const int s0 = SPLIT_D ? blockIdx.z * 64 : blockIdx.z * BLOCK_SEEDS + wg * 64;
   const int dw = SPLIT_D ? wg * WD : 0;
   const bool active = SPLIT_D || s0 < S;  // warpgroup-uniform (block-uniform at D = 128)
 
@@ -297,7 +300,7 @@ int climb(const float* X, float* Z, float* partial, int B, int N, int S, float k
                                          SMEM_BYTES<D>);
   if (err != cudaSuccess) return (int)err;
   const float c_log2 = kappa * 1.4426950408889634f;
-  const dim3 grid(nsplit, B, D == 128 ? (S + 63) / 64 : 1);
+  const dim3 grid(nsplit, B, D == 128 ? (S + 63) / 64 : (S + BLOCK_SEEDS - 1) / BLOCK_SEEDS);
   for (int it = 0; it < iters; ++it) {
     climb_partial_kernel<D><<<grid, THREADS, SMEM_BYTES<D>, st>>>(X, Z, partial, N, S,
                                                                  keys_per_block, c_log2);

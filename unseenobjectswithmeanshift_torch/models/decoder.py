@@ -22,7 +22,18 @@ the masks stay full resolution.
 
 ``input_proj`` and ``level_embed`` are folded into the cross-attention's k/v
 projections (:91-104): the kernel streams the 64-channel map, never a 256-d
-one. Submodule names follow the reference checkpoint keys
+one.
+
+``dtype`` is the compute dtype (``models/compute.py``), as the JAX
+decoder's (:285-509): the queries, LayerNorms, self-attention, FFN and heads
+run in it, and so does the cross-attention kernel, whose every input
+(``featT``, ``mfT``, ``me``, ``qn``, the folded projections, the positional
+factors) reaches it in that dtype. The folded projections are computed in
+fp32 and then cast (:96-104). The positional factors are the fp32 sine
+factors cast to the compute dtype: in bf16 the same values as the JAX
+package's ``posT.astype(bf16)``, key by key; the kernel's per-row and
+per-column tables built from them are fp32, as the JAX kernel's projected
+``PT`` is. Submodule names follow the reference checkpoint keys
 (``transformer_cross_attention_layers.{i}.meanshift_attn``, ...), so
 ``state_dict()`` feeds the JAX package's converter directly.
 """
@@ -37,6 +48,7 @@ from ..ops.fused_cross_attention import fused_uoms_cross_attention
 from ..ops.hypersphere_attention import (
     l2_normalize, meanshift_attention, merge_heads, split_heads,
 )
+from .compute import LayerNorm, Linear
 from .position_encoding import position_embedding_sine_factors
 
 
@@ -64,41 +76,44 @@ class MeanShiftAttention(nn.Module):
         the kernel projects per row and column instead of per key. win
         [C, E] / cin [E]: the input projection's kernel and its bias plus the
         level embedding, folded into the k/v projections. tile_skip: skip the
-        key tiles that no query attends to (same output bits)."""
+        key tiles that no query attends to (same output bits). Computes in
+        the query's dtype; the folded projections in fp32, then cast."""
+        dt = query.dtype
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
-        qn = l2_normalize(split_heads(F.linear(query, wq, bq), self.num_heads))
+        qn = l2_normalize(split_heads(F.linear(query, wq.to(dt), bq.to(dt)), self.num_heads))
         wk_io, wv_io = wk.T, wv.T                       # [in, out]
-        awk, awv = win @ wk_io, win @ wv_io
-        ck = cin @ wk_io + bk
-        cv = cin @ wv_io + bv
+        awk, awv = (win @ wk_io).to(dt), (win @ wv_io).to(dt)
+        ck = (cin @ wk_io + bk).to(dt)
+        cv = (cin @ wv_io + bv).to(dt)
         out = fused_uoms_cross_attention(
             qn.contiguous(), featT, mfT, me.contiguous(), pos, awk.contiguous(),
-            awv.contiguous(), wk_io.contiguous(), ck.contiguous(), cv.contiguous(),
+            awv.contiguous(), wk_io.to(dt).contiguous(), ck.contiguous(), cv.contiguous(),
             kappa=self.kappa, tile_skip=tile_skip, tile_skip_force_all=tile_skip_force_all)
-        return self.out_proj(merge_heads(l2_normalize(out)))
+        return F.linear(merge_heads(l2_normalize(out)), self.out_proj.weight.to(dt),
+                        self.out_proj.bias.to(dt))
 
 
 class _CrossLayer(nn.Module):
     def __init__(self, E, nheads, kappa):
         super().__init__()
         self.meanshift_attn = MeanShiftAttention(E, nheads, kappa)
-        self.norm = nn.LayerNorm(E)
+        self.norm = LayerNorm(E)
 
 
 class _SelfLayer(nn.Module):
     def __init__(self, E, nheads, kappa):
         super().__init__()
         self.self_attn = MeanShiftAttention(E, nheads, kappa)
-        self.norm = nn.LayerNorm(E)
+        self.norm = LayerNorm(E)
 
 
 class _FFNLayer(nn.Module):
-    def __init__(self, E, ffn):
+    def __init__(self, E, ffn, dtype):
         super().__init__()
-        self.linear1 = nn.Linear(E, ffn)
-        self.linear2 = nn.Linear(ffn, E)
-        self.norm = nn.LayerNorm(E)
+        self.linear1 = Linear(E, ffn, compute_dtype=dtype)
+        self.linear2 = Linear(ffn, E, compute_dtype=dtype)
+        self.norm = LayerNorm(E)
 
     def forward(self, x):
         return self.norm(x + self.linear2(F.relu(self.linear1(x))))
@@ -107,10 +122,11 @@ class _FFNLayer(nn.Module):
 class MLP(nn.Module):
     """relu MLP (ref: meanshiftformer_transformer_decoder.py:329-341)."""
 
-    def __init__(self, in_dim, hidden_dim, output_dim, num_layers=3):
+    def __init__(self, in_dim, hidden_dim, output_dim, num_layers=3, dtype=torch.float32):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
-        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims, dims[1:]))
+        self.layers = nn.ModuleList(Linear(a, b, compute_dtype=dtype)
+                                    for a, b in zip(dims, dims[1:]))
 
     def forward(self, x):
         for i, lin in enumerate(self.layers):
@@ -124,10 +140,11 @@ class MeanShiftDecoder(nn.Module):
     def __init__(self, num_classes=2, hidden_dim=256, num_queries=100, nheads=8,
                  dim_feedforward=2048, dec_layers=6, mask_dim=256, in_channels=64,
                  kappa=30.0, tile_skip=False, tile_skip_force_all=False,
-                 key_stride: int = 1, decoder_block_norm: bool = True):
+                 key_stride: int = 1, decoder_block_norm: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         E, Q = hidden_dim, num_queries
-        self.E, self.nheads, self.L = E, nheads, dec_layers
+        self.E, self.nheads, self.L, self.dtype = E, nheads, dec_layers, dtype
         self.tile_skip, self.tile_skip_force_all = tile_skip, tile_skip_force_all
         if key_stride < 1:
             raise ValueError(f"key_stride must be >= 1, got {key_stride}")
@@ -149,10 +166,10 @@ class MeanShiftDecoder(nn.Module):
         self.transformer_self_attention_layers = nn.ModuleList(
             _SelfLayer(E, nheads, kappa) for _ in range(dec_layers))
         self.transformer_ffn_layers = nn.ModuleList(
-            _FFNLayer(E, dim_feedforward) for _ in range(dec_layers))
-        self.decoder_norm = nn.LayerNorm(E)
-        self.class_embed = nn.Linear(E, num_classes + 1)
-        self.mask_embed = MLP(E, E, mask_dim, 3)
+            _FFNLayer(E, dim_feedforward, dtype) for _ in range(dec_layers))
+        self.decoder_norm = LayerNorm(E)
+        self.class_embed = Linear(E, num_classes + 1, compute_dtype=dtype)
+        self.mask_embed = MLP(E, E, mask_dim, 3, dtype)
 
     def _heads(self, output):
         d = self.decoder_norm(output)
@@ -163,9 +180,11 @@ class MeanShiftDecoder(nn.Module):
         in the JAX package; NCHW-contiguous storage is used without a copy).
         Returns pred_logits [B, Q, classes+1], mask_embed [B, Q, Cm],
         aux_outputs (per-layer pred_logits) and, when materialize_masks,
-        pred_masks [B, Q, h, w] (full resolution at any key_stride)."""
+        pred_masks [B, Q, h, w] (full resolution at any key_stride), all in the
+        compute dtype."""
         B, h, w, _ = x.shape
-        E, s = self.E, self.key_stride
+        E, s, dt = self.E, self.key_stride, self.dtype
+        x, mask_features = x.to(dt), mask_features.to(dt)
         mfT = mask_features.permute(0, 3, 1, 2).reshape(B, -1, h * w).contiguous()
         pos_y, pos_x = position_embedding_sine_factors(h, w, E // 2, device=x.device)
         if s > 1:
@@ -181,13 +200,13 @@ class MeanShiftDecoder(nn.Module):
         else:
             hk, wk, mfT_keys = h, w, mfT
         featT = x.permute(0, 3, 1, 2).reshape(B, -1, hk * wk).contiguous()
-        pos = (pos_y, pos_x)
+        pos = (pos_y.to(dt), pos_x.to(dt))
         proj = self.input_proj[0]
         win = proj.weight[:, :, 0, 0].T
         cin = proj.bias + self.level_embed.weight[0]
 
-        output = self.query_feat.weight[None].expand(B, -1, -1)
-        qpos = self.query_embed.weight[None].expand(B, -1, -1)
+        output = self.query_feat.weight.to(dt)[None].expand(B, -1, -1)
+        qpos = self.query_embed.weight.to(dt)[None].expand(B, -1, -1)
         cls, me = self._heads(output)
         aux = [cls]
         for i in range(self.L):

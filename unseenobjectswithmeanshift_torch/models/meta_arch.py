@@ -4,7 +4,9 @@ Port of ``unseenobjectswithmeanshift_tpu.models.meta_arch`` (MSMFormer light
 path :65-125, SimplePixelDecoder :34; ref:
 pretrained_meanshiftformer_model.py:50-497). The decoder's cross-attention
 runs the CUDA kernel whenever its tensors are on a CUDA device, with no flag
-that turns it off; on the CPU it runs the kernel's plain version.
+that turns it off; on the CPU it runs the kernel's plain version. Every
+module computes in ``cfg.dtype`` (``models/compute.py``): the SEGNET, the
+pixel decoder's 3x3 conv and the decoder, whose outputs come out in it.
 
 Module names follow the published checkpoint layout:
 ``pretrained_backbone.*``, ``sem_seg_head.pixel_decoder.mask_features``,
@@ -13,9 +15,11 @@ Module names follow the published checkpoint layout:
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
 from ..config import Config
+from .compute import Conv2d, compute_dtype
 from .decoder import MeanShiftDecoder
 from .segnet import build_segnet, l2_normalize
 
@@ -24,9 +28,10 @@ class SimplePixelDecoder(nn.Module):
     """3x3 conv conv_dim -> mask_dim for the mask features (identity when the
     widths agree; ref: fpn.py SimpleBasePixelDecoder:161-290)."""
 
-    def __init__(self, conv_dim: int = 64, mask_dim: int = 256):
+    def __init__(self, conv_dim: int = 64, mask_dim: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mask_features = (nn.Conv2d(conv_dim, mask_dim, 3, padding=1)
+        self.mask_features = (Conv2d(conv_dim, mask_dim, 3, padding=1, compute_dtype=dtype)
                               if mask_dim != conv_dim else None)
 
     def forward(self, features):
@@ -37,8 +42,9 @@ class _SemSegHead(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         d = cfg.decoder
+        dt = compute_dtype(cfg.dtype)
         self.pixel_decoder = SimplePixelDecoder(cfg.pixel_decoder.conv_dim,
-                                                cfg.pixel_decoder.mask_dim)
+                                                cfg.pixel_decoder.mask_dim, dt)
         # key_stride is an inference option: the port runs inference only
         # (the JAX package forces 1 in training, meta_arch.py:116)
         self.predictor = MeanShiftDecoder(
@@ -47,7 +53,7 @@ class _SemSegHead(nn.Module):
             dim_feedforward=d.dim_feedforward, dec_layers=d.dec_layers,
             mask_dim=d.mask_dim, in_channels=d.conv_dim, kappa=d.kappa,
             tile_skip=d.tile_skip, tile_skip_force_all=d.tile_skip_force_all,
-            key_stride=d.key_stride, decoder_block_norm=d.decoder_block_norm)
+            key_stride=d.key_stride, decoder_block_norm=d.decoder_block_norm, dtype=dt)
 
 
 def check_supported(cfg: Config):
@@ -79,7 +85,7 @@ class MSMFormer(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         # the JAX package's MSMFormer builds its SEGNET without grouped towers
-        self.pretrained_backbone = build_segnet(cfg.backbone, grouped_towers=False)
+        self.pretrained_backbone = build_segnet(cfg, grouped_towers=False)
         self.sem_seg_head = _SemSegHead(cfg)
 
     def forward(self, image, xyz=None, light: bool = True):

@@ -12,14 +12,23 @@ Submodule names follow the reference checkpoint keys
 ``fc``). ``groups=2`` stacks two towers along the channel axis (the JAX
 package's ``feature_group_count``): every conv is grouped, BatchNorm is per
 channel, so each half of the channels is one tower (SEGNET.grouped_towers).
+
+``dtype`` is the compute dtype (``models/compute.py``): every convolution,
+the fc included, computes in it with its fp32 weights cast at use;
+BatchNorm, the pooling and the upsample run on the compute dtype's
+activations with fp32 parameters, as the JAX package's modules do with
+``dtype=bfloat16``.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .compute import Conv2d
 
 
 def _plan_stages(layers: Sequence[int], block_expansion: int, output_stride: int):
@@ -47,17 +56,19 @@ def _plan_stages(layers: Sequence[int], block_expansion: int, output_stride: int
 
 class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, has_downsample: bool = False, groups: int = 1):
+                 dilation: int = 1, has_downsample: bool = False, groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         g = groups
-        self.conv1 = nn.Conv2d(inplanes * g, planes * g, 3, stride, padding=dilation,
-                               dilation=dilation, bias=False, groups=g)
+        self.conv1 = Conv2d(inplanes * g, planes * g, 3, stride, padding=dilation,
+                            dilation=dilation, bias=False, groups=g, compute_dtype=dtype)
         self.bn1 = nn.BatchNorm2d(planes * g)
-        self.conv2 = nn.Conv2d(planes * g, planes * g, 3, 1, padding=dilation,
-                               dilation=dilation, bias=False, groups=g)
+        self.conv2 = Conv2d(planes * g, planes * g, 3, 1, padding=dilation,
+                            dilation=dilation, bias=False, groups=g, compute_dtype=dtype)
         self.bn2 = nn.BatchNorm2d(planes * g)
         self.downsample = (nn.Sequential(
-            nn.Conv2d(inplanes * g, planes * g, 1, stride, bias=False, groups=g),
+            Conv2d(inplanes * g, planes * g, 1, stride, bias=False, groups=g,
+                   compute_dtype=dtype),
             nn.BatchNorm2d(planes * g)) if has_downsample else None)
 
     def forward(self, x):
@@ -72,19 +83,21 @@ class DilatedResNetFCN(nn.Module):
     [B, groups * num_units, H, W] (in_ch per tower)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), num_units: int = 64,
-                 output_stride: int = 8, in_ch: int = 3, groups: int = 1):
+                 output_stride: int = 8, in_ch: int = 3, groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         g = groups
-        self.conv1 = nn.Conv2d(in_ch * g, 64 * g, 7, 2, 3, bias=False, groups=g)
+        self.conv1 = Conv2d(in_ch * g, 64 * g, 7, 2, 3, bias=False, groups=g,
+                            compute_dtype=dtype)
         self.bn1 = nn.BatchNorm2d(64 * g)
         cin = 64
         for si, blocks in enumerate(_plan_stages(layers, 1, output_stride)):
             mods = []
             for planes, stride, dilation, has_ds in blocks:
-                mods.append(BasicBlock(cin, planes, stride, dilation, has_ds, g))
+                mods.append(BasicBlock(cin, planes, stride, dilation, has_ds, g, dtype))
                 cin = planes
             setattr(self, f"layer{si + 1}", nn.Sequential(*mods))
-        self.fc = nn.Conv2d(cin * g, num_units * g, 1, groups=g)
+        self.fc = Conv2d(cin * g, num_units * g, 1, groups=g, compute_dtype=dtype)
 
     def forward(self, x):
         hw = x.shape[-2:]
@@ -95,7 +108,8 @@ class DilatedResNetFCN(nn.Module):
         return F.interpolate(x, size=hw, mode="bilinear", align_corners=True)
 
 
-def resnet34_8s(num_units: int = 64, in_channels: int = 3, groups: int = 1) -> DilatedResNetFCN:
+def resnet34_8s(num_units: int = 64, in_channels: int = 3, groups: int = 1,
+                dtype: torch.dtype = torch.float32) -> DilatedResNetFCN:
     """ref: lib/networks/resnet_dilated.py Resnet34_8s. in_channels=6 takes
     'early' fusion's RGB | XYZ input; groups=2 stacks two towers."""
-    return DilatedResNetFCN((3, 4, 6, 3), num_units, 8, in_channels, groups)
+    return DilatedResNetFCN((3, 4, 6, 3), num_units, 8, in_channels, groups, dtype)

@@ -15,7 +15,8 @@ lib/networks/SEG.py:26-126). Inputs (SEG.py:97-110):
 twice as wide. Checkpoints keep the two-tower layout; ``weights.
 fuse_tower_state`` fuses them at load time. Each tower sits under the
 checkpoint prefix ``<tower>.resnet34_8s``. Public layout is NHWC like the JAX
-package; the towers run NCHW.
+package; the towers run NCHW. ``dtype`` is the compute dtype of every tower
+(``models/compute.py``); the embeddings come out in it.
 """
 
 from __future__ import annotations
@@ -23,22 +24,21 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops.hypersphere_attention import l2_normalize
+from .compute import compute_dtype
 from .resnet import resnet34_8s
 
 INPUT_TYPES = ("COLOR", "DEPTH", "RGBD")
 FUSION_TYPES = ("early", "add", "cat")
 
 
-def l2_normalize(x, dim=-1, eps=1e-12):
-    return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True).clamp_min(eps)
-
-
 class _Tower(nn.Module):
     """Holds the FCN under the reference's ``<tower>.resnet34_8s`` key."""
 
-    def __init__(self, num_units: int, in_channels: int = 3, groups: int = 1):
+    def __init__(self, num_units: int, in_channels: int = 3, groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.resnet34_8s = resnet34_8s(num_units, in_channels, groups)
+        self.resnet34_8s = resnet34_8s(num_units, in_channels, groups, dtype)
 
     def forward(self, x):
         return self.resnet34_8s(x)
@@ -49,7 +49,7 @@ class SEGNET(nn.Module):
 
     def __init__(self, num_units: int = 64, input_type: str = "RGBD", fusion_type: str = "add",
                  normalize: bool = True, grouped_towers: bool = False,
-                 network: str = "resnet34_8s"):
+                 network: str = "resnet34_8s", dtype: torch.dtype = torch.float32):
         super().__init__()
         if network != "resnet34_8s":
             raise ValueError(f"backbone.network {network!r} is not ported: resnet50_8s, unet "
@@ -63,9 +63,9 @@ class SEGNET(nn.Module):
         self.early = input_type == "RGBD" and fusion_type == "early"
         two_tower = input_type == "RGBD" and not self.early
         self.grouped = two_tower and grouped_towers
-        self.fcn = _Tower(num_units, 6 if self.early else 3, 2 if self.grouped else 1)
+        self.fcn = _Tower(num_units, 6 if self.early else 3, 2 if self.grouped else 1, dtype)
         if two_tower and not self.grouped:
-            self.fcn_depth = _Tower(num_units)
+            self.fcn_depth = _Tower(num_units, dtype=dtype)
         self.out_channels = 2 * num_units if two_tower and fusion_type == "cat" else num_units
 
     def raw_nchw(self, img, xyz):
@@ -96,10 +96,10 @@ class SEGNET(nn.Module):
         return self.forward_nchw(t(img), t(xyz)).permute(0, 2, 3, 1)
 
 
-def build_segnet(backbone, grouped_towers: bool = True) -> SEGNET:
-    """SEGNET of a ``BackboneConfig`` (ref factory: lib/networks/SEG.py:173-186).
-    grouped_towers=False ignores ``backbone.grouped_towers``, as the JAX
-    package's MSMFormer does."""
-    b = backbone
+def build_segnet(cfg, grouped_towers: bool = True) -> SEGNET:
+    """SEGNET of a ``Config``'s backbone, computing in ``cfg.dtype`` (ref
+    factory: lib/networks/SEG.py:173-186). grouped_towers=False ignores
+    ``backbone.grouped_towers``, as the JAX package's MSMFormer does."""
+    b = cfg.backbone
     return SEGNET(b.num_units, b.input_type, b.fusion_type, b.normalize,
-                  grouped_towers and b.grouped_towers, b.network)
+                  grouped_towers and b.grouped_towers, b.network, compute_dtype(cfg.dtype))

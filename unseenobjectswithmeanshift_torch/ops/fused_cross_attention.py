@@ -34,6 +34,23 @@ the encoding instead of K (``expand_pos`` gives the general form of the same
 encoding, which the plain version computes with). Launches of the general
 form's full pos projection are counted apart, in
 ``fused_uoms_cross_attention.general_pos_launches``.
+
+Dtypes: every input (qn, featT, mfT, me, the positional input, awk, awv, wk,
+ck, cv) is fp32, or every input is bf16 (the JAX package's serving dtype);
+``qn`` sets which, and a mixed call raises. The output has qn's dtype, as
+the JAX kernel's (:427, :486). With bf16 inputs the function is the JAX
+kernel's on bf16 inputs (``_tile_body``, :171-235): every product takes
+bf16 operands with fp32 accumulation; k^ is rounded to bf16 after its fp32
+norm (:205), the weights p = exp2(c s - c) (:213) and v in [v | 1]
+(:217-219) are rounded to bf16, and the row sums add the rounded weights;
+the finalize is fp32 with the guard, and the result is cast to bf16. The
+plain version does exactly that on the CPU: it converts the bf16 inputs to
+fp32 (exact; a product of two bf16 values is exact in fp32, so an fp32
+product of them is the bf16-operand product), computes in fp32 and rounds at
+those three places. On a CUDA tensor bf16 inputs run the kernel's bf16
+variant (counted in
+``fused_uoms_cross_attention.launches`` with the fp32 one and apart in
+``fused_uoms_cross_attention.bf16_launches``).
 """
 
 from __future__ import annotations
@@ -49,6 +66,8 @@ HEAD_DIM = 32
 MAX_QUERIES = 128    # MAX_Q in the .cu: 8 tiles of 16 query rows
 MAX_CHANNELS = 64    # MAX_C in the .cu; C a multiple of 8
 BLOCKS_PER_SM = 2    # resident blocks per SM of the attention pass
+LOG2E = 1.4426950408889634
+DTYPES = (torch.float32, torch.bfloat16)   # the kernel's input dtypes
 
 _argtypes_set = False
 
@@ -70,11 +89,19 @@ def tile_occupancy(unmasked, present=None):
     return occ if present is None else occ & present.bool()[:, None]
 
 
-def masked_vmf_attention_tiles(qn, kn, vh, unmasked, kappa: float, tiles=None):
+def _round_bf16(t):
+    """t rounded to bf16 (nearest even), as a tensor of t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def masked_vmf_attention_tiles(qn, kn, vh, unmasked, kappa: float, tiles=None,
+                               bf16_weights: bool = False):
     """sum_t m p v_t / sum_t m p with p = exp(kappa (q . k^_t - 1)), the
     attention of the kernels, over the 64-key tiles of each image that
     ``tiles`` [B, T] marks (all tiles when None); an image with no tile gives
     zeros. qn [B, H, Q, D]; kn, vh [B, H, K, D]; unmasked [B, Q, K] bool.
+    bf16_weights: p = exp2(c s - c), c = kappa log2(e), rounded to bf16 (the
+    JAX kernel's bf16 weights), in the work dtype of qn.
 
     Each tile's partial sums are built with elementwise products only, key by
     key and channel by channel, and the partials of all T tiles are summed in
@@ -104,7 +131,11 @@ def masked_vmf_attention_tiles(qn, kn, vh, unmasked, kappa: float, tiles=None):
             s = q[..., 0, None] * k[:, :, None, :, 0]    # [H, n, Q, 64]
             for d in range(1, D):
                 s = s + q[..., d, None] * k[:, :, None, :, d]
-            p = torch.exp(kappa * s - kappa) * ut[b][t_idx].to(s.dtype)
+            if bf16_weights:
+                c = kappa * LOG2E
+                p = _round_bf16(torch.exp2(c * s - c)) * ut[b][t_idx].to(s.dtype)
+            else:
+                p = torch.exp(kappa * s - kappa) * ut[b][t_idx].to(s.dtype)
             acc = p[..., 0, None] * v[:, :, None, 0]     # [H, n, Q, D + 1]
             for j in range(1, TILE_KEYS):
                 acc = acc + p[..., j, None] * v[:, :, None, j]
@@ -133,23 +164,31 @@ def fused_uoms_cross_attention_plain(qn, featT, mfT, me, posT, awk, awv, wk, ck,
     kernel's fixed maximum. posT in either form (the separable one is
     expanded first). With tile_skip (and not tile_skip_force_all) the
     attention runs only over the tiles ``tile_occupancy`` keeps; the result
-    is the same bits."""
+    is the same bits. bf16 inputs: the JAX kernel's bf16 semantics (module
+    docstring), computed in fp32 and returned in bf16; fp32 and fp64 inputs
+    compute in their own dtype."""
     B, H, Q, D = qn.shape
     K = featT.shape[-1]
-    posT = expand_pos(posT)
+    out_dtype = qn.dtype
+    bf16 = out_dtype == torch.bfloat16
+    wt = torch.float32 if bf16 else out_dtype           # work dtype
+    rd = _round_bf16 if bf16 else (lambda t: t)
+    qn, featT, mfT, me, awk, awv, wk, ck, cv = (
+        t.to(wt) for t in (qn, featT, mfT, me, awk, awv, wk, ck, cv))
+    posT = expand_pos(posT).to(wt)
     feat = featT.transpose(1, 2)                       # [B, K, C]
     k = feat @ awk + (posT.T @ wk)[None] + ck          # [B, K, E]
     v = feat @ awv + cv
     kh = k.reshape(B, K, H, D).transpose(1, 2)         # [B, H, K, D]
-    vh = v.reshape(B, K, H, D).transpose(1, 2)
-    kn = kh / torch.sqrt((kh * kh).sum(-1, keepdim=True) + 1e-24)
+    vh = rd(v.reshape(B, K, H, D).transpose(1, 2))
+    kn = rd(kh / torch.sqrt((kh * kh).sum(-1, keepdim=True) + 1e-24))
     unmasked = unmasked_keys(me @ mfT)                 # [B, Q, K]
     tiles = (tile_occupancy(unmasked, present)
              if tile_skip and not tile_skip_force_all else None)
-    out = masked_vmf_attention_tiles(qn, kn, vh, unmasked, kappa, tiles)
+    out = masked_vmf_attention_tiles(qn, kn, vh, unmasked, kappa, tiles, bf16_weights=bf16)
     if present is not None:
         out = torch.where(present.bool()[:, None, None, None], out, 0.0)
-    return out
+    return out.to(out_dtype)
 
 
 def pack_mask_bits(unmasked):
@@ -163,8 +202,9 @@ def pack_mask_bits(unmasked):
 
 
 def mask_pass_plain(me, mfT, present=None):
-    """Plain version of ``mask_pass``."""
-    unmasked = (me @ mfT) >= 0
+    """Plain version of ``mask_pass`` (bf16 operands multiplied in fp32)."""
+    wt = torch.promote_types(me.dtype, torch.float32)
+    unmasked = (me.to(wt) @ mfT.to(wt)) >= 0
     if present is not None:
         unmasked = unmasked & present.bool()[:, None, None]
     return pack_mask_bits(unmasked), unmasked.sum(-1, dtype=torch.int32)
@@ -175,24 +215,26 @@ def mask_pass(me, mfT, present=None):
     int32 in the layout of ``pack_mask_bits``, cnt [B, Q] int32) for
     ``me @ mfT >= 0``, before the guard; absent images give zeros. The
     kernel's own mask, for checking it on inputs of any precision; the
-    decoder never calls this. Kernel on CUDA tensors (counted in
-    ``mask_pass.launches``), plain version on CPU tensors."""
+    decoder never calls this. me and mfT both fp32 or both bf16. Kernel on
+    CUDA tensors (counted in ``mask_pass.launches``), plain version on CPU
+    tensors."""
     if me.device.type == "cpu":
         return mask_pass_plain(me, mfT, present)
     B, Q, Cm = me.shape
     K = mfT.shape[-1]
     if Q > MAX_QUERIES:
         raise ValueError(f"kernel takes Q <= {MAX_QUERIES}; got Q={Q}")
-    _check("me", me, (B, Q, Cm))
-    _check("mfT", mfT, (B, Cm, K))
+    dtype = _input_dtype(me)
+    _check("me", me, (B, Q, Cm), dtype)
+    _check("mfT", mfT, (B, Cm, K), dtype)
     present_i = (torch.ones(B, dtype=torch.int32, device=me.device) if present is None
                  else present.to(device=me.device, dtype=torch.int32).contiguous())
     lib = _library()
     bits = torch.zeros((B, Q, -(-K // 32)), dtype=torch.int32, device=me.device)
     cnt = torch.empty((B, Q), dtype=torch.int32, device=me.device)
-    rc = lib.uoms_mask_pass(me.data_ptr(), mfT.data_ptr(), present_i.data_ptr(),
-                            bits.data_ptr(), cnt.data_ptr(), B, Q, Cm, K,
-                            torch.cuda.current_stream(me.device).cuda_stream)
+    entry = lib.uoms_mask_pass_bf16 if dtype == torch.bfloat16 else lib.uoms_mask_pass
+    rc = entry(me.data_ptr(), mfT.data_ptr(), present_i.data_ptr(), bits.data_ptr(),
+               cnt.data_ptr(), B, Q, Cm, K, torch.cuda.current_stream(me.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mask_pass kernel launch failed: "
                            f"CUDA error {rc} ({lib.uoms_error_string(rc).decode()})")
@@ -203,11 +245,19 @@ def mask_pass(me, mfT, present=None):
 mask_pass.launches = 0
 
 
+def _input_dtype(t):
+    """The call's dtype, set by its first input: fp32 or bf16, else raises."""
+    if t.dtype not in DTYPES:
+        raise TypeError(f"the kernel takes {DTYPES} inputs, got {t.dtype}")
+    return t.dtype
+
+
 def _check(name, t, shape, dtype=torch.float32):
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{name} must be {dtype} like the call's other inputs (no mixed "
+                        f"dtypes), got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -221,10 +271,12 @@ def _library():
     lib = _build.load("fused_cross_attention")
     if not _argtypes_set:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.uoms_fused_xattn.argtypes = [p] * 18 + [i] * 11 + [ctypes.c_float, i, p]
-        lib.uoms_fused_xattn.restype = i
-        lib.uoms_mask_pass.argtypes = [p] * 5 + [i] * 4 + [p]
-        lib.uoms_mask_pass.restype = i
+        for entry in (lib.uoms_fused_xattn, lib.uoms_fused_xattn_bf16):
+            entry.argtypes = [p] * 18 + [i] * 11 + [ctypes.c_float, i, p]
+            entry.restype = i
+        for entry in (lib.uoms_mask_pass, lib.uoms_mask_pass_bf16):
+            entry.argtypes = [p] * 5 + [i] * 4 + [p]
+            entry.restype = i
         lib.uoms_error_string.argtypes = [i]
         lib.uoms_error_string.restype = ctypes.c_char_p
         _argtypes_set = True
@@ -268,9 +320,11 @@ def fused_uoms_cross_attention(qn, featT, mfT, me, posT, awk, awv, wk, ck, cv,
     or the pair (pos_y, pos_x) (module docstring). tile_skip runs the
     kernel's tile-skipping variant (same output, bit for bit);
     tile_skip_force_all runs that variant with every tile present (a control
-    that measures the cost of the test). Counts its kernel launches in
-    ``fused_uoms_cross_attention.launches``, and those with the general
-    posT in ``fused_uoms_cross_attention.general_pos_launches``."""
+    that measures the cost of the test). All inputs fp32 or all bf16 (module
+    docstring); the output has qn's dtype. Counts its kernel launches in
+    ``fused_uoms_cross_attention.launches``, those with the general posT in
+    ``fused_uoms_cross_attention.general_pos_launches`` and those in bf16 in
+    ``fused_uoms_cross_attention.bf16_launches``."""
     if qn.device.type == "cpu":
         return fused_uoms_cross_attention_plain(qn, featT, mfT, me, posT, awk, awv,
                                                 wk, ck, cv, present, kappa, tile_skip,
@@ -283,6 +337,7 @@ def fused_uoms_cross_attention(qn, featT, mfT, me, posT, awk, awv, wk, ck, cv,
                          f"got H={H}, Q={Q}, D={D}")
     if C % 8 or C > MAX_CHANNELS:
         raise ValueError(f"kernel takes C a multiple of 8 up to {MAX_CHANNELS}; got C={C}")
+    dtype = _input_dtype(qn)
     general = isinstance(posT, torch.Tensor)
     if general:
         pos_a, pos_b, pos_h, pos_w = posT, None, K, 1
@@ -298,7 +353,7 @@ def fused_uoms_cross_attention(qn, featT, mfT, me, posT, awk, awv, wk, ck, cv,
                            ("mfT", mfT, (B, Cm, K)), ("me", me, (B, Q, Cm)), *pos_shapes,
                            ("awk", awk, (C, E)), ("awv", awv, (C, E)), ("wk", wk, (E, E)),
                            ("ck", ck, (E,)), ("cv", cv, (E,))):
-        _check(name, t, shape)
+        _check(name, t, shape, dtype)
     if present is None:
         present_i = torch.ones(B, dtype=torch.int32, device=qn.device)
     else:
@@ -310,14 +365,15 @@ def fused_uoms_cross_attention(qn, featT, mfT, me, posT, awk, awv, wk, ck, cv,
     dev = qn.device
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     nsplit, tiles_per_split = launch_plan(B, H, K, sm_count)
-    out = torch.empty((B, H, Q, D), dtype=torch.float32, device=dev)
+    out = torch.empty((B, H, Q, D), dtype=dtype, device=dev)
     pos_row = torch.empty((K if general else pos_h, E), dtype=torch.float32, device=dev)
     pos_col = torch.empty((1 if general else pos_w, E), dtype=torch.float32, device=dev)
     bits = torch.empty((B, Q, -(-K // 32)), dtype=torch.int32, device=dev)
     cnt = torch.empty((B, Q), dtype=torch.int32, device=dev)
     partial = torch.empty((B, nsplit, H, Q, D + 1), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.uoms_fused_xattn(
+    entry = lib.uoms_fused_xattn_bf16 if dtype == torch.bfloat16 else lib.uoms_fused_xattn
+    rc = entry(
         qn.data_ptr(), featT.data_ptr(), mfT.data_ptr(), me.data_ptr(), pos_a.data_ptr(),
         None if pos_b is None else pos_b.data_ptr(), awk.data_ptr(), awv.data_ptr(),
         wk.data_ptr(), ck.data_ptr(), cv.data_ptr(), present_i.data_ptr(), out.data_ptr(),
@@ -329,8 +385,10 @@ def fused_uoms_cross_attention(qn, featT, mfT, me, posT, awk, awv, wk, ck, cv,
                            f"CUDA error {rc} ({lib.uoms_error_string(rc).decode()})")
     fused_uoms_cross_attention.launches += 1
     fused_uoms_cross_attention.general_pos_launches += int(general)
+    fused_uoms_cross_attention.bf16_launches += int(dtype == torch.bfloat16)
     return out
 
 
 fused_uoms_cross_attention.launches = 0
 fused_uoms_cross_attention.general_pos_launches = 0
+fused_uoms_cross_attention.bf16_launches = 0

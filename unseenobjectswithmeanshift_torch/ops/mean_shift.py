@@ -119,7 +119,7 @@ def connected_components_plain(within):
     return torch.from_numpy(labels).to(within.device)
 
 
-MAX_CC_SEEDS = 128    # MAX_SEEDS in csrc/connected_components.cu
+MAX_CC_SEEDS = 1024   # MAX_SEEDS in csrc/connected_components.cu
 _cc_lib = None
 
 

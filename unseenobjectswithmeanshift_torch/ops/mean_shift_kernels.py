@@ -32,7 +32,8 @@ from .mean_shift import assign_clusters, connected_components, fps_batched, seed
 
 EMBED_DIMS = (64, 128)  # the widths D the .cu files are instantiated for
 EMBED_DIM = 64          # the default width (cfg.backbone.num_units)
-MAX_SEEDS = 128        # MAX_SEEDS in mean_shift_climb.cu
+MAX_SEEDS = 1024       # MAX_SEEDS in mean_shift_climb.cu
+CLIMB_BLOCK_SEEDS = 128  # BLOCK_SEEDS in mean_shift_climb.cu: seeds a block at d = 64
 FPS_THREADS = 512       # THREADS in fps_seeds.cu: a row takes d / 4 lanes (one float4 each)
 FPS_ROWS_PER_PASS = 32  # rows a block of fps_seeds.cu takes per pass at d = 64
 FPS_REG_ROWS = 16       # REG in fps_seeds.cu: register rows a lane group holds
@@ -101,42 +102,17 @@ def fps_rows_per_pass(d: int) -> int:
     return FPS_THREADS * 4 // d
 
 
-def fps_plan(B: int, N: int, sms: int, smem_per_block: int, d: int = 64) -> dict:
-    """Launch plan of the persistent FPS kernel (csrc/fps_seeds.cu) for X
-    [B, N, d] on a device with `sms` SMs and `smem_per_block` bytes of
-    dynamic shared memory a block may opt in to. At d = 128 a row takes
-    twice the bytes and a pass half the rows, so a block holds half as many
-    rows on chip.
-
-    The B N rows form one range cut into `grid` equal slices of
-    `rows_per_block` rows (the last may be shorter), one block per SM (the
-    plan fills a block's shared memory, so one block fits an SM, and all are
-    resident). A slice keeps, for all S steps: the running distance of every
-    row and the first `resident_rows` rows of X in shared memory, the next
-    `register_rows` rows per lane group (0, or FPS_REG_ROWS) in registers,
-    and the next `l2_rows` rows in the L2 (FPS_L2_BYTES over the grid); the
-    rest of the slice is read from device memory at every step.
-    `image_slots` is the most images a slice can touch. Raises ValueError when
-    the distances of a slice do not fit in shared memory. -> dict with those
-    keys, `smem_bytes` (the kernel's dynamic shared memory, as
-    fps_smem_bytes in the .cu file computes it), and, over all blocks, the
-    rows kept in the L2 (`l2_held_rows`) and read from device memory at
-    every step (`streamed_rows`)."""
-    if d not in EMBED_DIMS:
-        raise ValueError(f"the FPS kernel takes d in {EMBED_DIMS}, got {d}")
-    if B < 1 or N < 1 or sms < 1:
-        raise ValueError(f"need B, N, sms >= 1, got {B}, {N}, {sms}")
+def _fps_launch_plan(B: int, N: int, sms: int, smem_per_block: int, d: int):
+    """The plan of one launch over all B images (fps_plan), or None when the
+    running distances of a slice do not fit in shared memory."""
     total = B * N
-    if total > 2**31 - 1:
-        raise ValueError(f"B * N = {total} rows: the FPS kernel takes fewer than 2^31")
     rows = -(-total // min(sms, total))
     grid = -(-total // rows)
     image_slots = (rows - 1 + N - 1) // N + 1
     row_bytes = 4 * d
     fixed = 4 * (image_slots * d + FPS_RED_FLOATS + -(-rows // 4) * 4)
     if fixed > smem_per_block:
-        raise ValueError(f"{rows} rows a block: their running distances do not fit in "
-                         f"{smem_per_block} bytes of shared memory (B * N = {total})")
+        return None
     resident = min(rows, (smem_per_block - fixed) // row_bytes)
     register = FPS_REG_ROWS if rows > resident else 0
     on_chip = min(rows, resident + register * fps_rows_per_pass(d))
@@ -150,14 +126,63 @@ def fps_plan(B: int, N: int, sms: int, smem_per_block: int, d: int = 64) -> dict
             "streamed_rows": sum(max(0, n - l2) for n in off_chip)}
 
 
+def fps_plan(B: int, N: int, sms: int, smem_per_block: int, d: int = 64) -> dict:
+    """Launch plan of the persistent FPS kernel (csrc/fps_seeds.cu) for X
+    [B, N, d] on a device with `sms` SMs and `smem_per_block` bytes of
+    dynamic shared memory a block may opt in to. At d = 128 a row takes
+    twice the bytes and a pass half the rows, so a block holds half as many
+    rows on chip.
+
+    A launch cuts the rows of its images into one range of `grid` equal
+    slices of `rows_per_block` rows (the last may be shorter), one block per
+    SM (the plan fills a block's shared memory, so one block fits an SM, and
+    all are resident). A slice keeps, for all S steps: the running distance
+    of every row and the first `resident_rows` rows of X in shared memory,
+    the next `register_rows` rows per lane group (0, or FPS_REG_ROWS) in
+    registers, and the next `l2_rows` rows in the L2 (FPS_L2_BYTES over the
+    grid); the rest of the slice is read from device memory at every step.
+    `image_slots` is the most images a slice can touch.
+
+    Each image's chain is its own, so when the running distances of a slice
+    of all B images do not fit in shared memory, the images are cut into
+    `groups` of whole images, as few and as even as fit, each launched alone
+    (the seeds are the same bits). -> dict: `groups`, the (first, end) image
+    range of each launch; the keys above and `smem_bytes` (the kernel's
+    dynamic shared memory, as fps_smem_bytes in the .cu file computes it) of
+    the first group's launch (``fps_plan(end - first, N, ...)`` plans each
+    group); and, over all launches, the rows kept in the L2
+    (`l2_held_rows`) and read from device memory at every step
+    (`streamed_rows`). Raises ValueError when one image does not fit."""
+    if d not in EMBED_DIMS:
+        raise ValueError(f"the FPS kernel takes d in {EMBED_DIMS}, got {d}")
+    if B < 1 or N < 1 or sms < 1:
+        raise ValueError(f"need B, N, sms >= 1, got {B}, {N}, {sms}")
+    if B * N > 2**31 - 1:
+        raise ValueError(f"B * N = {B * N} rows: the FPS kernel takes fewer than 2^31")
+    per_launch = B
+    while _fps_launch_plan(per_launch, N, sms, smem_per_block, d) is None:
+        if per_launch == 1:
+            raise ValueError(f"one image of {N} rows: the running distances of a slice "
+                             f"do not fit in {smem_per_block} bytes of shared memory")
+        per_launch -= 1
+    n_groups = -(-B // per_launch)
+    sizes = [B // n_groups + (i < B % n_groups) for i in range(n_groups)]   # largest first
+    ends = [sum(sizes[:i + 1]) for i in range(n_groups)]
+    groups = list(zip([0] + ends[:-1], ends))
+    plans = [_fps_launch_plan(e - b, N, sms, smem_per_block, d) for b, e in groups]
+    return {**plans[0], "groups": groups,
+            "l2_held_rows": sum(p["l2_held_rows"] for p in plans),
+            "streamed_rows": sum(p["streamed_rows"] for p in plans)}
+
+
 def climb_plan(B: int, N: int, sms: int, seed_blocks: int = 1) -> dict:
     """Launch plan of the hill-climbing kernel (csrc/mean_shift_climb.cu),
     one block per SM at a time: the key splits per image (keys per split a
     multiple of the 64-key tile) that take the least time, counted as waves
     of `sms` blocks times the tile times of a block (its tiles plus
     CLIMB_BLOCK_TILES), the fewest blocks on ties. seed_blocks: blocks per
-    split and image (d = 128 runs one per 64 seeds). -> dict with keys
-    keys_per_block and nsplit."""
+    split and image (one per 128 seeds at d = 64, one per 64 at d = 128).
+    -> dict with keys keys_per_block and nsplit."""
     best = None
     Bb = B * seed_blocks
     for per_image in range(1, max(1, 4 * sms // Bb) + 1):
@@ -200,8 +225,9 @@ fps_seeds_plain = fps_batched
 
 def fps_seeds(X, first_seed_idx, num_seeds: int = 100):
     """Farthest-point seeds: kernel on CUDA tensors (one cooperative launch
-    for the whole chain), plain version on CPU tensors. Counts its kernel
-    launches in ``fps_seeds.launches``."""
+    for the whole chain of every image of a group, ``fps_plan``'s groups:
+    one group unless the images do not fit one launch), plain version on CPU
+    tensors. Counts its kernel launches in ``fps_seeds.launches``."""
     if X.device.type == "cpu":
         return fps_seeds_plain(X, first_seed_idx, num_seeds)
     _check_X(X)
@@ -209,25 +235,28 @@ def fps_seeds(X, first_seed_idx, num_seeds: int = 100):
         raise ValueError(f"num_seeds must be >= 1, got {num_seeds}")
     B, N, d = X.shape
     first = _first_indices(first_seed_idx, B, X.device)
-    plan = fps_plan(B, N, **device_limits(X.device), d=d)
+    limits = device_limits(X.device)
     seeds = torch.empty((B, num_seeds, d), dtype=torch.float32, device=X.device)
     indices = torch.empty((B, num_seeds), dtype=torch.int32, device=X.device)
-    pv = torch.empty((2, plan["grid"] + B), dtype=torch.float32, device=X.device)
-    pi = torch.empty((2, plan["grid"] + B), dtype=torch.int32, device=X.device)
-    count = torch.empty(1, dtype=torch.int32, device=X.device)   # zeroed by the kernel's entry
     lib = _library("fps_seeds")
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    with torch.cuda.device(X.device):
-        rc = lib.uoms_fps_seeds(X.data_ptr(), first.data_ptr(), seeds.data_ptr(),
-                                indices.data_ptr(), pv.data_ptr(), pi.data_ptr(),
-                                count.data_ptr(), B, N, d, num_seeds, plan["grid"],
-                                plan["rows_per_block"], plan["resident_rows"],
-                                plan["register_rows"], plan["l2_rows"], plan["image_slots"],
-                                plan["smem_bytes"], stream)
-    if rc != 0:
-        raise RuntimeError(f"fps_seeds kernel launch failed: CUDA error {rc} "
-                           f"({lib.uoms_fps_error_string(rc).decode()})")
-    fps_seeds.launches += 1
+    for b0, b1 in fps_plan(B, N, **limits, d=d)["groups"]:
+        plan = fps_plan(b1 - b0, N, **limits, d=d)
+        pv = torch.empty((2, plan["grid"] + b1 - b0), dtype=torch.float32, device=X.device)
+        pi = torch.empty((2, plan["grid"] + b1 - b0), dtype=torch.int32, device=X.device)
+        count = torch.empty(1, dtype=torch.int32, device=X.device)   # zeroed by the kernel's entry
+        with torch.cuda.device(X.device):
+            rc = lib.uoms_fps_seeds(X[b0:b1].data_ptr(), first[b0:b1].data_ptr(),
+                                    seeds[b0:b1].data_ptr(), indices[b0:b1].data_ptr(),
+                                    pv.data_ptr(), pi.data_ptr(), count.data_ptr(), b1 - b0, N,
+                                    d, num_seeds, plan["grid"], plan["rows_per_block"],
+                                    plan["resident_rows"], plan["register_rows"],
+                                    plan["l2_rows"], plan["image_slots"], plan["smem_bytes"],
+                                    stream)
+        if rc != 0:
+            raise RuntimeError(f"fps_seeds kernel launch failed: CUDA error {rc} "
+                               f"({lib.uoms_fps_error_string(rc).decode()})")
+        fps_seeds.launches += 1
     return seeds, indices
 
 
@@ -261,7 +290,7 @@ def mean_shift_seeds(X, first_seed_idx, kappa: float = 20.0, num_seeds: int = 10
         return seeds, indices
     B, N, d = X.shape
     plan = climb_plan(B, N, device_limits(X.device)["sms"],
-                      seed_blocks=1 if d == 64 else -(-num_seeds // 64))
+                      seed_blocks=-(-num_seeds // (CLIMB_BLOCK_SEEDS if d == 64 else 64)))
     partial = torch.empty((B, plan["nsplit"], num_seeds, d), dtype=torch.float32,
                           device=X.device)
     lib = _library("mean_shift_climb")

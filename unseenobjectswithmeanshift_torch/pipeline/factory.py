@@ -9,9 +9,14 @@ from ``seed`` (through a ``torch.Generator``), numpy trees of the JAX package
 ``weights.from_jax_segnet_variables``), or files (``checkpoint=``: a
 reference ``.pth``, or an ``.npz`` written by ``scripts/export_release_npz.py``).
 
+Both networks compute in the whole-image configuration's ``dtype``
+("float32", or "bfloat16" from ``bf16=True`` or a config / YAML that says
+so), as the JAX factory sets both configurations' dtype
+(JAX ``pipeline/factory.py:81-82``); parameters stay fp32.
+
 Nothing falls back: a preset of the standard-backbone family (ResNet50, Swin),
-a bf16 configuration, or a pairing that the JAX package cannot build either
-raises a ValueError that says why.
+a dtype other than those two, or a pairing that the JAX package cannot build
+either raises a ValueError that says why.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Optional
 import torch
 
 from ..config import Config, get_config
+from ..models.compute import compute_dtype
 from ..models.meta_arch import MSMFormer
 from ..models.segnet import build_segnet
 from ..weights import (
@@ -51,23 +57,20 @@ def crop_preset_for(name: str) -> str:
 
 
 def _configs(preset, crop_preset, default_crop, cfg, cfg_crop, no_depth: bool, bf16: bool):
-    """The two configurations, with no_depth applied and checked for what
-    the port serves (copies: the caller's configurations are not changed);
-    raises ValueError naming the ROADMAP item that will port a refused
-    preset."""
+    """The two configurations, with no_depth applied, both in one compute
+    dtype (bfloat16 when bf16 or the whole-image configuration says so, else
+    float32), and checked for what the port serves (copies: the caller's
+    configurations are not changed); raises ValueError naming the ROADMAP
+    item that will port a refused preset."""
     cfg = copy.deepcopy(cfg) if cfg is not None else get_config(preset)
     cfg_crop = (copy.deepcopy(cfg_crop) if cfg_crop is not None
                 else get_config(crop_preset or default_crop))
-    if bf16:
-        raise ValueError("bf16 is not ported: it needs bf16 variants of the kernels "
-                         "(ROADMAP queue 1 item 15)")
+    compute_dtype(cfg.dtype)                         # raises on an unknown dtype
+    cfg.dtype = cfg_crop.dtype = "bfloat16" if bf16 or cfg.dtype == "bfloat16" else "float32"
     for c in (cfg, cfg_crop):
         if c.use_other_backbone or c.backbone.kind != "ucn":
             raise ValueError(f"preset {c.name!r} (backbone.kind {c.backbone.kind!r}) is the "
                              "standard-backbone family, not ported (ROADMAP queue 1 item 10)")
-        if c.dtype != "float32":
-            raise ValueError(f"preset {c.name!r}: dtype {c.dtype!r} is not ported; bf16 needs "
-                             "bf16 variants of the kernels (ROADMAP queue 1 item 15)")
         if no_depth:
             c.use_depth = False
             c.backbone.input_type = "COLOR"
@@ -109,7 +112,10 @@ def build_two_stage_predictor(preset: str = "tabletop_pretrained",
     None), else random from ``seed`` (the crop network from ``seed + 1``).
     no_depth: COLOR input on both networks. key_stride > 1 (opt-in, not the
     parity configuration) strides the cross-attention keys of both decoders.
-    tile_skip sets ``decoder.tile_skip`` on both networks."""
+    tile_skip sets ``decoder.tile_skip`` on both networks. bf16 (or
+    ``cfg.dtype == "bfloat16"``) computes both networks in bf16, the
+    cross-attention on the kernel's bf16 variant (the JAX package's serving
+    dtype, as its ``bf16=True``)."""
     cfg, cfg_crop = _configs(preset, crop_preset, crop_preset_for(preset), cfg, cfg_crop,
                              no_depth, bf16)
     if key_stride > 1:
@@ -136,19 +142,21 @@ def build_ucn_predictor(preset: str = "tabletop_pretrained",
                         variables=None, variables_crop=None,
                         checkpoint: Optional[str] = None,
                         checkpoint_crop: Optional[str] = None, no_depth: bool = False,
-                        device="cuda", cfg: Optional[Config] = None,
+                        bf16: bool = False, device="cuda", cfg: Optional[Config] = None,
                         cfg_crop: Optional[Config] = None) -> UCNPredictor:
     """Whole-image and crop SEGNETs of the UCN pipeline in eval mode on
     ``device``, with the conventions of build_two_stage_predictor (weights
     are JAX SEGNET trees or reference UCN checkpoints). The crop network
     takes crop_preset, else CROP_PRESET_FOR's pair, else the same preset (as
     the JAX package's ``cli/test_net.py --ucn`` does). With
-    ``backbone.grouped_towers`` two-tower weights are fused at load time."""
+    ``backbone.grouped_towers`` two-tower weights are fused at load time.
+    bf16 (or ``cfg.dtype == "bfloat16"``) runs both SEGNETs in bf16, as the
+    JAX ``UCNPredictor(dtype=jnp.bfloat16)``; the clustering stays fp32."""
     cfg, cfg_crop = _configs(preset, crop_preset, CROP_PRESET_FOR.get(preset, preset), cfg,
-                             cfg_crop, no_depth, False)
+                             cfg_crop, no_depth, bf16)
     if checkpoint is not None and checkpoint_crop is None and variables_crop is None:
         checkpoint_crop = checkpoint
-    nets = [_build(lambda c: build_segnet(c.backbone), c,
+    nets = [_build(build_segnet, c,
                    _weights(v, ck, from_jax_segnet_variables), seed + i, device)
             for i, (c, v, ck) in enumerate(((cfg, variables, checkpoint),
                                             (cfg_crop, variables_crop, checkpoint_crop)))]
