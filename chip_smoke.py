@@ -127,6 +127,21 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             the dense bf16 path; one UCN frame with bf16 SEGNETs; with
             --weights, the B=1 comparison on those weights. Phases 15 and
             16 run the bf16 MSMFormer predictor too.
+21. r50_check  rows 1-2 at the key counts of the standard-backbone pyramid
+            (K = 300, 1,200, 4,800 at B=1; K = 49, 196, 784 at B=20 with
+            2 crops absent): fp32 against fp64 (TOL) and bf16 against its
+            twin (BF16_TOL) in both positional forms, tile skipping equal to
+            dense (torch.equal) in both dtypes; launches, kernel, plain and
+            bound ms at each shape.
+22. r50_main  tabletop_pretrained_resnet50 + crop_tabletop_resnet50_rgb at
+            full width (ResNet50, MSDeformAttn pixel decoder, 9-layer 3-level
+            decoder), 480x640, B=1, fp32, decisive weights: 9 + 9
+            cross-attention launches, >= 1 crop, the network against its
+            CPU copy on a 96x128 input (R50_CPU_TOL), e2e, breakdown, peak
+            memory, the kernel again at the crop count stage 2 ran; the same
+            frame with bf16=True against fp32; one frame each of
+            tabletop_swin, pushing_resnet50 (with depth), uoais_resnet50 and
+            mixture_resnet50 in fp32 and in bf16, 9 + 9 launches each.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure ends the run with a
@@ -151,8 +166,8 @@ from unseenobjectswithmeanshift_torch.models import decoder as decoder_module
 from unseenobjectswithmeanshift_torch.models.position_encoding import position_embedding_sine
 from unseenobjectswithmeanshift_torch.ops import _build
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
-    TILE_KEYS, fused_uoms_cross_attention, fused_uoms_cross_attention_plain, mask_pass,
-    tile_occupancy, unmasked_keys,
+    TILE_KEYS, fused_uoms_cross_attention, fused_uoms_cross_attention_plain, launch_plan,
+    mask_pass, tile_occupancy, unmasked_keys,
 )
 from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
     fused_masked_hypersphere_attention, fused_masked_hypersphere_attention_plain,
@@ -1785,13 +1800,24 @@ def run_counted(pred, image, xyz):
             fused_uoms_cross_attention.bf16_launches - b1)
 
 
+def backbone_fn(model, image, xyz):
+    """The whole-image network's backbone alone: the SEGNET, or the standard
+    arch's ResNet50 / Swin on the COCO-normalized image."""
+    if hasattr(model, "pretrained_backbone"):
+        return lambda: model.pretrained_backbone(image, xyz)
+    return lambda: model.backbone_features(image)
+
+
 def compare_dtypes(tag, p32, p16, image, xyz):
     """bf16 predictor against fp32 on the same weights and frames: launches
-    (6 + 6 a frame, all bf16), surface deviation, label agreement, crops,
-    e2e in turns (fp32, bf16, bf16, fp32) and the bf16 breakdown. -> results."""
+    (one a decoder layer and stage, all bf16: 6 + 6 for the UCN-backbone
+    decoder, 9 + 9 for the 3-level one), surface deviation, label
+    agreement, crops, e2e in turns (fp32, bf16, bf16, fp32) and the bf16
+    breakdown. -> results."""
     s1, refined, n1, n2, b1, b2 = run_counted(p16, image, xyz)
     crops = int(sum(int(c.present.sum()) for c in s1.crops))
-    assert (n1, n2, b1, b2) == (6, 6, 6, 6), f"{tag}: launches {n1} + {n2}, bf16 {b1} + {b2}"
+    nl = p16.model.sem_seg_head.predictor.L
+    assert (n1, n2, b1, b2) == (nl,) * 4, f"{tag}: launches {n1} + {n2}, bf16 {b1} + {b2}"
     assert crops >= 1, f"{tag}: stage 1 gave no crop, so stage 2 did not run"
     B = image.shape[0]
     assert s1.labels.shape == refined.shape == (B, 480, 640)
@@ -1813,7 +1839,7 @@ def compare_dtypes(tag, p32, p16, image, xyz):
         e2e.setdefault(name, []).extend(median_ms(lambda: pred(image, xyz))[1])
     med = {k: statistics.median(v) for k, v in e2e.items()}
     with torch.inference_mode():
-        parts = {"stage1_backbone": lambda: p16.model.pretrained_backbone(image, xyz),
+        parts = {"stage1_backbone": backbone_fn(p16.model, image, xyz),
                  "stage1_network": lambda: p16.model(image, xyz, light=True),
                  "stage1_total": lambda: p16.stage1(image, xyz),
                  "refine_total": lambda: p16.refine(s1)}
@@ -1955,6 +1981,213 @@ def seeds_200_check(results):
                f"{equal} ({int(cc.max()) + 1} components at most)")
     if not equal:
         raise AssertionError("connected components at 200 seeds disagree with the numpy sweep")
+
+
+# Rows 1-2 at the key counts of the standard-backbone pyramid: the 3-level
+# decoder attends res5, res4 and res3 in turn (strides 32, 16, 8) of a
+# 480x640 frame and of the 224x224 crops. K = 49 is less than one 64-key
+# tile and K % 4 = 1; K = 300 and 196 are not multiples of 8, so their rows
+# are copied without 16-byte copies in bf16.
+R50_SHAPES = {   # name: (B, h, w, absent)
+    "r50_stage1_B1_K300": (1, 15, 20, ()),
+    "r50_stage1_B1_K1200": (1, 30, 40, ()),
+    "r50_stage1_B1_K4800": (1, 60, 80, ()),
+    "r50_crops_B20_K49": (20, 7, 7, (3, 11)),
+    "r50_crops_B20_K196": (20, 14, 14, (3, 11)),
+    "r50_crops_B20_K784": (20, 28, 28, (3, 11)),
+}
+R50_LEVELS = ((15, 20), (30, 40), (60, 80))      # stage 1 at 480x640
+R50_CROP_LEVELS = ((7, 7), (14, 14), (28, 28))   # 224x224 crops
+
+
+def r50_check_phase():
+    """21. rows 1-2 at R50_SHAPES: the fp32 kernel against its plain version
+    in fp64 (TOL) and the bf16 kernel against its twin (BF16_TOL), both
+    positional forms, guard queries and absent crops; the tile-skipping
+    variant (and force_all) equal to the dense kernel (torch.equal) in both
+    dtypes, on the check inputs and on concentrated masks; the launches each
+    shape's checks made (each call of the wrapper is one launch), kernel
+    (fp32, bf16 in turns), plain and bound ms.
+    -> {case: results}."""
+    results = {}
+    for name, (B, h, w, absent) in R50_SHAPES.items():
+        K = h * w
+        before = fused_uoms_cross_attention.launches
+        sm = torch.cuda.get_device_properties(0).multi_processor_count
+        r = results[name] = {"K": K, "tiles": -(-K // TILE_KEYS), "K_mod_8": K % 8,
+                             "launch_plan": launch_plan(B, H, K, sm)}
+        r["max_abs_err"] = max(check_case(name, B, h, w, absent, form)[2] for form in FORMS)
+        r["bf16_max_abs_err"] = max(check_bf16_case(name, B, h, w, absent, form)[2]["max_abs_err"]
+                                    for form in FORMS)
+        equal, shares = {}, {}
+        for conc in (False, True):
+            args32, present = (concentrated_inputs(B, h, w, absent) if conc
+                               else make_inputs(B, h, w, absent))
+            tag = "concentrated" if conc else "check"
+            shares[tag] = skipped_share(args32[3], args32[2], present)[0]
+            for dt, args in (("fp32", args32), ("bf16", to_bf16(args32))):
+                call = lambda **kw: fused_uoms_cross_attention(*args, present=present, **kw)
+                dense = call()
+                equal[f"{dt}_{tag}"] = (torch.equal(call(tile_skip=True), dense) and torch.equal(
+                    call(tile_skip=True, tile_skip_force_all=True), dense))
+            del args32, args, present, dense
+        r.update(tile_skip_equal=equal, skipped_share=shares,
+                 check_launches=fused_uoms_cross_attention.launches - before)
+        args, present = make_inputs(B, h, w, absent)
+        args16 = to_bf16(args)
+        ms = time_in_turns({
+            "fp32": lambda: fused_uoms_cross_attention(*args, present=present),
+            "bf16": lambda: fused_uoms_cross_attention(*args16, present=present)})
+        r["plain_ms"] = time_ms(lambda: fused_uoms_cross_attention_plain(*args, present=present),
+                                warmup=1, reps=3)
+        tc, fma, nbytes = work(args, present)
+        r["ms"], r["bf16_ms"] = ms["fp32"], ms["bf16"]
+        r["bound_ms"], r["bound_by"] = tf32x3_bound(tc, fma, nbytes)
+        r["bf16_bound_ms"], r["bf16_bound_by"] = bf16_bound(*work(args16, present))
+        r.update(gflop=(tc + fma) / 1e9, gbytes=nbytes / 1e9)
+        sync_print(f"r50_check {name}: K={K} tiles={r['tiles']} launch_plan={r['launch_plan']} "
+                   f"max_abs_err={r['max_abs_err']:.3e} (fp64, tol={TOL:.0e}) "
+                   f"bf16_max_abs_err={r['bf16_max_abs_err']:.3e} (twin, tol={BF16_TOL:.0e}) "
+                   f"tile_skip_equal={equal} skipped_share={shares} "
+                   f"launches_of_the_checks={r['check_launches']} "
+                   f"kernel_ms fp32={r['ms']:.4f} bf16={r['bf16_ms']:.4f} "
+                   f"plain_ms={r['plain_ms']:.3f} bound_ms fp32={r['bound_ms']:.4f} "
+                   f"({r['bound_by']}; {r['gflop']:.3f} GFLOP, {r['gbytes'] * 1e3:.2f} MB) "
+                   f"bf16={r['bf16_bound_ms']:.4f} ({r['bf16_bound_by']})")
+        if not all(equal.values()):
+            raise AssertionError(f"tile skipping differs from the dense kernel at {name}")
+        del args, args16, present
+        torch.cuda.empty_cache()
+    return results
+
+
+def run_frame(tag, pred, image, xyz, layers):
+    """One frame through a predictor with the counts zeroed before:
+    asserts `layers` cross-attention launches in each stage, general pos 0,
+    >= 1 crop and int32 labels of the frame's size. -> (stage-1 result,
+    refined, launches stage 1, stage 2, crops)."""
+    zero_counts()
+    s1 = pred.stage1(image, xyz)
+    torch.cuda.synchronize()
+    n1 = fused_uoms_cross_attention.launches
+    refined = pred.refine(s1)
+    torch.cuda.synchronize()
+    n2 = fused_uoms_cross_attention.launches - n1
+    crops = int(sum(int(c.present.sum()) for c in s1.crops))
+    assert fused_uoms_cross_attention.general_pos_launches == 0, f"{tag}: general pos"
+    assert crops >= 1, f"{tag}: stage 1 gave no crop, so stage 2 did not run"
+    assert n1 == layers and n2 == layers, f"{tag}: launches {n1} + {n2}, expected {layers} each"
+    assert s1.labels.shape == refined.shape == (image.shape[0], *image.shape[1:3])
+    assert s1.labels.dtype == refined.dtype == torch.int32
+    return s1, refined, n1, n2, crops
+
+
+# The standard-backbone network on the card against the same weights on the
+# CPU (cuDNN against CPU convolutions, the kernel against its plain version),
+# on a small input: each output within R50_CPU_TOL of its scale. Both are
+# fp32 with TF32 off and the kernel's products in 3xTF32, so they differ by
+# rounding; a wrong level, layout or weight shows as O(1). The deviation is
+# printed.
+R50_CPU_TOL = 1e-3
+
+
+def small_input_agreement(model, hw=(96, 128)):
+    """The fp32 network's pred_logits, mask_embed and mask_features on a
+    seeded hw image, on the card and on a CPU copy. Raises beyond
+    R50_CPU_TOL. -> {output: max |card - cpu| over the CPU scale}."""
+    import copy
+
+    g = torch.Generator().manual_seed(1)
+    image = torch.rand(1, *hw, 3, generator=g) * 255
+    with torch.inference_mode():
+        got = model(image.cuda(), light=True)
+        want = copy.deepcopy(model).cpu()(image, light=True)
+    dev = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-30)).item()
+           for k in ("pred_logits", "mask_embed", "mask_features")}
+    sync_print(f"r50_main small input {hw}: card vs CPU max deviation of scale "
+               + " ".join(f"{k}={v:.2e}" for k, v in dev.items()) + f" (tol {R50_CPU_TOL:.0e})")
+    if not all(v <= R50_CPU_TOL for v in dev.values()):
+        raise AssertionError("the standard-backbone network on the card disagrees with the CPU")
+    return dev
+
+
+def r50_main_phase(results):
+    """22. the standard-backbone two-stage path at full width through
+    build_two_stage_predictor: tabletop_pretrained_resnet50 with
+    crop_tabletop_resnet50_rgb (ResNet50, MSDeformAttn pixel decoder with 6
+    encoder layers, 9-layer 3-level decoder, hidden 256, 8 heads, 100
+    queries) at 480x640, B=1, fp32 with TF32 off, on the decisive weights of
+    main: 9 + 9 cross-attention launches, crops, outputs, the network against
+    its CPU copy on a small input, e2e (median of 3 after a warm-up),
+    breakdown, peak memory, the kernel checked again at the crop count stage
+    2 ran; the same frame with bf16=True against fp32
+    (compare_dtypes); one frame each of tabletop_swin, pushing_resnet50 (with
+    depth), uoais_resnet50 (up to 40 crops) and mixture_resnet50 with their
+    crop presets, in fp32 and in bf16 (9 + 9 launches, >= 1 crop, e2e).
+    -> (fp32 launches, bf16 launches) of the R50 frame."""
+    image, xyz = synthetic_rgbd(seed=0)
+    pred = decisive_predictor(seed=0, preset="tabletop_pretrained_resnet50")
+    s1, refined, n1, n2, crops = run_frame("r50_main", pred, image, None, 9)
+    with torch.inference_mode():
+        out = pred.model(image, light=True)
+    assert all(bool(torch.isfinite(out[k]).all())
+               for k in ("pred_logits", "mask_embed", "mask_features")), "r50_main outputs"
+    mf_shape = tuple(out["mask_features"].shape)
+    assert mf_shape == (1, 120, 160, 256), f"r50_main mask_features {mf_shape}"
+    del out
+    small = small_input_agreement(pred.model)
+    results["small_input_vs_cpu"] = small
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    e2e, runs = median_ms(lambda: pred(image))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.inference_mode():
+        parts = {"stage1_backbone": backbone_fn(pred.model, image, None),
+                 "stage1_network": lambda: pred.model(image, light=True),
+                 "stage1_total": lambda: pred.stage1(image),
+                 "refine_total": lambda: pred.refine(s1)}
+        split = {k: median_ms(f)[0] for k, f in parts.items()}
+    results["fp32"] = dict(launches_stage1=n1, launches_stage2=n2, crops=crops,
+                           stage1_instances=int((s1.labels.unique() >= 2).sum()),
+                           refined_instances=int((refined.unique() >= 1).sum()),
+                           e2e_ms=e2e, runs_ms=runs, peak_gib=peak, breakdown_ms=split)
+    sync_print(f"r50_main fp32: launches stage1={n1} stage2={n2} crops={crops} "
+               f"stage1_instances={results['fp32']['stage1_instances']} "
+               f"refined_instances={results['fp32']['refined_instances']} mask_features "
+               f"{mf_shape}; e2e_ms median of 3 = {e2e:.1f} (runs "
+               f"{', '.join(f'{t:.1f}' for t in runs)}) peak_memory={peak:.2f} GiB; breakdown "
+               "median ms " + " ".join(f"{k}={v:.1f}" for k, v in split.items()))
+    for (h, w), name in zip(R50_CROP_LEVELS, ("K49", "K196", "K784")):
+        tag = f"r50_stage2_B{crops}_{name}"
+        results[tag] = {"max_abs_err": check_case(tag, crops, h, w)[2]}
+    launches = n1 + n2
+    del s1, refined
+    torch.cuda.empty_cache()
+
+    p16 = decisive_predictor(seed=0, preset="tabletop_pretrained_resnet50", bf16=True)
+    results["bf16"] = compare_dtypes("r50_main bf16", pred, p16, image, None)
+    bf16_launches = results["bf16"]["bf16_launches"]
+    del pred, p16
+    torch.cuda.empty_cache()
+
+    for preset, frame_xyz in (("tabletop_swin", None), ("pushing_resnet50", xyz),
+                              ("uoais_resnet50", None), ("mixture_resnet50", None)):
+        for bf16 in (False, True):
+            tag = f"{preset}_bf16" if bf16 else preset
+            pred = decisive_predictor(seed=0, preset=preset, bf16=bf16)
+            _, _, m1, m2, c = run_frame(f"r50_main {tag}", pred, image, frame_xyz, 9)
+            b = fused_uoms_cross_attention.bf16_launches
+            assert b == (m1 + m2 if bf16 else 0), f"r50_main {tag}: {b} bf16 launches"
+            t = median_ms(lambda: pred(image, frame_xyz))[0]
+            results[tag] = dict(launches_stage1=m1, launches_stage2=m2, bf16_launches=b,
+                                crops=c, e2e_ms=t, depth=frame_xyz is not None,
+                                crop_preset=pred.cfg_crop.name)
+            sync_print(f"r50_main {tag}: crop preset {pred.cfg_crop.name} launches stage1={m1} "
+                       f"stage2={m2} (bf16 {b}) crops={c} depth={frame_xyz is not None} "
+                       f"e2e_ms={t:.1f}")
+            del pred
+            torch.cuda.empty_cache()
+    return launches, bf16_launches
 
 
 def main(argv=None):
@@ -2107,14 +2340,25 @@ def main(argv=None):
     bf16_launches, bf16_skip_launches = bf16_main_phase(bf16_main, opts.weights)
     phase_done("bf16_main", t0)
 
+    # 21-22. the standard-backbone family
+    t0 = time.perf_counter()
+    r50_results = r50_check_phase()
+    phase_done("r50_check", t0)
+    t0 = time.perf_counter()
+    r50_main = {}
+    r50_launches, r50_bf16_launches = r50_main_phase(r50_main)
+    phase_done("r50_main", t0)
+
     s1r = results["stage1_B1_K307200"]["separable"]
     kernels = [{
         "name": "fused_uoms_cross_attention",
         "route": "cuda",
         "source": "unseenobjectswithmeanshift_torch/csrc/fused_cross_attention.cu",
         "replaces": "unseenobjectswithmeanshift_tpu/ops/fused_cross_attention.py:334",
-        "launches": launches,
-        "max_abs_err": max(x["max_abs_err"] for r in results.values() for x in r.values()),
+        "launches": launches + r50_launches,
+        "launches_by_path": {"main": launches, "r50_main": r50_launches},
+        "max_abs_err": max([x["max_abs_err"] for r in results.values() for x in r.values()]
+                           + [r["max_abs_err"] for r in r50_results.values()]),
         "ms": s1r["ms"], "plain_ms": s1r["plain_ms"], "bound_ms": s1r["bound_ms"],
         "bound_by": s1r["bound_by"], "library_ms": None,
         "ms_general_pos": results["stage1_B1_K307200"]["general"]["ms"],
@@ -2123,6 +2367,8 @@ def main(argv=None):
         "key_stride_shapes": stride_results,
         "launches_key_stride": {k: preset_launches[k]["fused_uoms_cross_attention"]
                                 for k in ("key_stride_2", "key_stride_3")},
+        "r50_shapes": r50_results,
+        "r50_main": r50_main,
     }]
     u1 = ucn_results["stage1_B1_N307200"]
     for name, line, err_key, design in (
@@ -2211,7 +2457,7 @@ def main(argv=None):
     b1 = bf16_results["stage1_B1_K307200"]["separable"]
     bk = bf16_results["tile_skip_stage1_B1_K307200_concentrated"]
     for name, line, entry, launched in (
-            ("fused_uoms_cross_attention(bf16)", 334, b1, bf16_launches),
+            ("fused_uoms_cross_attention(bf16)", 334, b1, bf16_launches + r50_bf16_launches),
             ("fused_uoms_cross_attention(bf16, tile_skip=True)", 483, bk, bf16_skip_launches)):
         kernels.append({
             "name": name,
@@ -2222,8 +2468,12 @@ def main(argv=None):
                       "with fp32 accumulation; k^, p and v rounded to bf16 as the JAX kernel",
             "replaces": f"unseenobjectswithmeanshift_tpu/ops/fused_cross_attention.py:{line}",
             "launches": launched,
-            "max_abs_err": (max(bf16_results[n][f]["max_abs_err"] for n in BF16_SHAPES
-                                for f in FORMS) if line == 334 else bk["max_abs_err"]),
+            "max_abs_err": (max([bf16_results[n][f]["max_abs_err"] for n in BF16_SHAPES
+                                 for f in FORMS]
+                                + [r["bf16_max_abs_err"] for r in r50_results.values()])
+                            if line == 334 else bk["max_abs_err"]),
+            **({"launches_by_path": {"bf16_main": bf16_launches,
+                                     "r50_main": r50_bf16_launches}} if line == 334 else {}),
             "max_abs_err_of": "bf16 output against the bf16 twin (tol 2e-2)",
             **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,

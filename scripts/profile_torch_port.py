@@ -21,7 +21,10 @@
    bf16 passes at the stage-1 and crop shapes, the MSMFormer frame of 2. in
    bf16, both dtypes on 8 frames as one B=8 batch, and the UCN frame of 3.
    with bf16 SEGNETs.
-6. With --weights (a .npz export of one MSMFormer release,
+6. The standard-backbone frame (chip_smoke.py's ``r50_main``:
+   tabletop_pretrained_resnet50 + crop_tabletop_resnet50_rgb, decisive
+   weights, no depth) in fp32 and in bf16 (``profile_r50``).
+7. With --weights (a .npz export of one MSMFormer release,
    scripts/export_release_npz.py), the MSMFormer frame of 2. on those weights
    (paired with themselves for stage 2; on the export's rendered scene if it
    holds one), dense and with decoder.tile_skip: the cross-attention's
@@ -81,6 +84,15 @@ def profile_frame(tag, fn, result):
         print(f"  {v:8.2f} ms  {k[:110]}", flush=True)
 
 
+def profile_r50(image, result):
+    """6. the standard-backbone frame in fp32 and bf16."""
+    for tag, bf16 in (("r50", False), ("r50_bf16", True)):
+        pred = chip_smoke.decisive_predictor(seed=0, preset="tabletop_pretrained_resnet50",
+                                             bf16=bf16)
+        profile_frame(tag, lambda: pred(image), result)
+        del pred
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Device-time breakdown of the port.")
     p.add_argument("--weights", help="a .npz export of one MSMFormer release")
@@ -133,6 +145,7 @@ def main(argv=None):
         pred = chip_smoke.decisive_ucn_predictor(image, xyz, seed=0, cfg=cfg)
         profile_frame(tag, lambda: pred(image, xyz), result)
         del pred
+    profile_r50(image, result)
     if not opts.no_stream:
         for kind in ("msmformer", "ucn"):
             pred = (chip_smoke.decisive_predictor(seed=0) if kind == "msmformer" else

@@ -48,16 +48,25 @@ def test_load_config_yaml_with_base_equals_jax(tmp_path):
                                          ("tabletop_swin", "item 10"),
                                          ("uoais_resnet50", "item 10")])
 def test_factory_refuses_the_standard_backbone_family(preset, item):
+    """The standard-backbone presets build (tests/test_torch_r50_two_stage.py);
+    what their family keeps for a later slice is refused, naming the ROADMAP
+    item: here the pre-norm decoder."""
+    cfg = config.get_config(preset)
+    cfg.decoder.pre_norm = True
     with pytest.raises(ValueError, match=item):
-        factory.build_two_stage_predictor(preset, device="cpu")
+        factory.build_two_stage_predictor(preset, cfg=cfg, device="cpu")
 
 
 def test_factory_refuses_bf16():
-    """bf16 serves the UCN-backbone presets (tests/test_torch_bf16.py); what
-    bf16 is still refused: the standard-backbone family in bf16 (ROADMAP
-    queue 1 item 10) and a compute dtype the JAX package does not have."""
+    """bf16 serves every MSMFormer preset (tests/test_torch_bf16.py,
+    tests/test_torch_r50_two_stage.py); what bf16 is still refused: what the
+    standard-backbone family keeps for later (ROADMAP queue 1 item 10, here
+    the decoder without attention masks) and a compute dtype the JAX package
+    does not have."""
+    cfg = config.get_config("tabletop_pretrained_resnet50")
+    cfg.decoder.disable_attention_mask = True
     with pytest.raises(ValueError, match="item 10"):
-        factory.build_two_stage_predictor("tabletop_pretrained_resnet50", bf16=True,
+        factory.build_two_stage_predictor("tabletop_pretrained_resnet50", bf16=True, cfg=cfg,
                                           device="cpu")
     cfg = config.get_config()
     cfg.dtype = "float16"

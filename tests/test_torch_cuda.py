@@ -808,3 +808,59 @@ def test_kernel_takes_feature_channels_in_eights(cuda, C, dtype):
         want = fused_uoms_cross_attention_plain(*args)
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                    atol=BF16_TOL)
+
+
+R50_ABSENT = [i not in (3, 11) for i in range(20)]
+
+
+@pytest.mark.parametrize("B,h,w,present", [(1, 15, 20, None), (1, 30, 40, None),
+                                           (1, 60, 80, None), (20, 7, 7, R50_ABSENT),
+                                           (20, 14, 14, R50_ABSENT), (20, 28, 28, R50_ABSENT)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_the_r50_pyramid_key_counts(cuda, B, h, w, present, dtype):
+    """The key counts of the 3-level decoder (stage 1 at 480x640: K = 300,
+    1,200, 4,800; 224x224 crops: K = 49, 196, 784, two absent) in the
+    decoder's separable positional form: fp32 against fp64 (2e-5), bf16
+    against its twin (BF16_TOL), tile skipping equal to dense."""
+    K = h * w
+    args = [torch.from_numpy(a).to(cuda, dtype) for a in make_inputs(11, B, 100, K)]
+    args[4] = tuple(f.to(dtype) for f in position_embedding_sine_factors(h, w, 128, device=cuda))
+    p = None if present is None else torch.tensor(present, dtype=torch.bool, device=cuda)
+    got = fused_uoms_cross_attention(*args, present=p)
+    if dtype == torch.float32:
+        want = fused_uoms_cross_attention_plain(
+            *[a.double() for a in args[:4]], tuple(f.double() for f in args[4]),
+            *[a.double() for a in args[5:]], present=p)
+        np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(), atol=2e-5)
+    else:
+        want = fused_uoms_cross_attention_plain(*args, present=p)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   atol=BF16_TOL)
+    assert torch.equal(fused_uoms_cross_attention(*args, present=p, tile_skip=True), got)
+    if present is not None:
+        assert all(on or bool((got[b] == 0).all()) for b, on in enumerate(present))
+
+
+def test_r50_two_stage_on_cuda_matches_cpu(cuda):
+    """The standard-backbone two-stage path (ResNet50, MSDeformAttn, 3-level
+    decoder) at small width on CUDA against the CPU on the same decisive
+    weights: 3 + 3 launches, equal labels."""
+    cfg = get_config("tabletop_pretrained_resnet50")
+    d = cfg.decoder
+    d.hidden_dim, d.nheads, d.num_queries, d.dec_layers = 256, 8, 16, 3
+    d.dim_feedforward, d.mask_dim = 128, 48
+    cfg.pixel_decoder.mask_dim, cfg.pixel_decoder.transformer_enc_layers = 48, 2
+    cfg.test.max_instances, cfg.test.crop_size = 5, 64
+    preds = [decisive_predictor(seed=4, preset=cfg.name, device=device, cfg=copy.deepcopy(cfg),
+                                cfg_crop=copy.deepcopy(cfg)) for device in ("cpu", cuda)]
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.rand(1, 128, 160, 3).astype(np.float32) * 255)
+    cpu_l, cpu_r = preds[0](img)
+    before = fused_uoms_cross_attention.launches
+    s1 = preds[1].stage1(img.to(cuda))
+    assert fused_uoms_cross_attention.launches == before + 3
+    gpu_r = preds[1].refine(s1)
+    assert fused_uoms_cross_attention.launches == before + 6
+    assert len(torch.unique(cpu_l)) >= 2
+    np.testing.assert_array_equal(s1.labels.cpu().numpy(), cpu_l.numpy())
+    np.testing.assert_array_equal(gpu_r.cpu().numpy(), cpu_r.numpy())

@@ -54,6 +54,10 @@ def test_port_and_chip_smoke_import_no_jax():
     expected = {m.name for m in pkgutil.walk_packages(
         unseenobjectswithmeanshift_torch.__path__, "unseenobjectswithmeanshift_torch.")}
     assert set(result["modules"]) == expected and len(expected) >= 15
+    # the standard-backbone family's modules are among them
+    assert {f"unseenobjectswithmeanshift_torch.{m}" for m in (
+        "ops.ms_deform_attn", "models.backbone_resnet", "models.pixel_decoders",
+        "models.swin")} <= expected
     assert result["bad"] == []
 
 

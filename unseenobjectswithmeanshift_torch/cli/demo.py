@@ -9,7 +9,8 @@ run two-stage inference per image and save '-label.png' outputs.
       [--checkpoint msmformer.pth --checkpoint-crop msmformer_crop.pth] \\
       [--config PRESET] [--no-depth] [--key-stride 2] [--bf16] [--out DIR] [--device cuda]
 
-The flags are the JAX demo's, plus --device (default cuda). A checkpoint is a
+The flags are the JAX demo's, plus --device (default cuda) and --preset (the
+same as --config). A checkpoint is a
 reference .pth or an .npz written by scripts/export_release_npz.py; without
 one the networks have random weights (a pipeline smoke run). cv2 is imported
 inside ``main``: the card machine has none, and ``label_frame``, the
@@ -61,9 +62,10 @@ def label_frame(pred, image, xyz=None, refine: bool = True):
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--imgdir", required=True)
-    p.add_argument("--config", default=None,
+    p.add_argument("--config", "--preset", dest="config", default=None,
                    help="config preset (tabletop_pretrained, uoais_ucn, mixture_ucn, "
-                        "...); default picks the flagship UCN-backbone preset")
+                        "tabletop_pretrained_resnet50, tabletop_swin, ...); default picks "
+                        "the flagship UCN-backbone preset")
     p.add_argument("--checkpoint", default=None, help="reference .pth or exported .npz")
     p.add_argument("--checkpoint-crop", default=None)
     p.add_argument("--camera-params", default=None)

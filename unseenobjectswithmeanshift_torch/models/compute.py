@@ -59,7 +59,8 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -68,5 +69,15 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x):
         y = F.layer_norm(x.to(at_least_fp32(x.dtype)), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm of the input's dtype, computed in at least fp32 (fp32
+    parameters) and cast back to the input's dtype."""
+
+    def forward(self, x):
+        y = F.group_norm(x.to(at_least_fp32(x.dtype)), self.num_groups, self.weight,
                          self.bias, self.eps)
         return y.to(x.dtype)

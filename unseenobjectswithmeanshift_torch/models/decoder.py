@@ -1,4 +1,4 @@
-"""MeanShift transformer decoder (MSMFormer), 1 feature level, fused structure.
+"""MeanShift transformer decoder (MSMFormer), 1 or 3 feature levels, fused structure.
 
 Port of ``unseenobjectswithmeanshift_tpu.models.decoder.MeanShiftDecoder``
 along its fused inference path (:315-386, :396-408, :450-509), which the JAX
@@ -19,6 +19,12 @@ cross-attention's keys are the strided subsample [::s, ::s] of the
 full-resolution map, each with the feature and the positional encoding it has
 at stride 1 (the sine factors are computed at the full size, then strided);
 the masks stay full resolution.
+
+``num_feature_levels`` L (1 for the UCN backbone, 3 for the standard
+backbones' pyramid, :296-509): one input projection and one level embedding
+per level; layer i attends level i % L, whose keys are that level's pixels
+and whose mask comes from the mask features resized once per level to the
+level's size (bilinear, align_corners=False, :370-374).
 
 ``input_proj`` and ``level_embed`` are folded into the cross-attention's k/v
 projections (:91-104): the kernel streams the 64-channel map, never a 256-d
@@ -48,6 +54,7 @@ from ..ops.fused_cross_attention import fused_uoms_cross_attention
 from ..ops.hypersphere_attention import (
     l2_normalize, meanshift_attention, merge_heads, split_heads,
 )
+from ..ops.resize import resize_bilinear
 from .compute import LayerNorm, Linear
 from .position_encoding import position_embedding_sine_factors
 
@@ -141,26 +148,31 @@ class MeanShiftDecoder(nn.Module):
                  dim_feedforward=2048, dec_layers=6, mask_dim=256, in_channels=64,
                  kappa=30.0, tile_skip=False, tile_skip_force_all=False,
                  key_stride: int = 1, decoder_block_norm: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 num_feature_levels: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         E, Q = hidden_dim, num_queries
         self.E, self.nheads, self.L, self.dtype = E, nheads, dec_layers, dtype
+        self.num_levels = num_feature_levels
         self.tile_skip, self.tile_skip_force_all = tile_skip, tile_skip_force_all
         if key_stride < 1:
             raise ValueError(f"key_stride must be >= 1, got {key_stride}")
+        if key_stride > 1 and num_feature_levels != 1:
+            raise ValueError("key_stride applies to the 1-level (UCN) configs only; the R50 "
+                             "pyramid levels are already strided")
         self.key_stride, self.block_norm = key_stride, decoder_block_norm
         self.query_feat = nn.Embedding(Q, E)
         self.query_embed = nn.Embedding(Q, E)
-        self.level_embed = nn.Embedding(1, E)
+        self.level_embed = nn.Embedding(num_feature_levels, E)
         # the reference projects when in_channels != hidden_dim or
-        # decoder.enforce_input_project; the UCN configurations (64 -> 256)
-        # always do, so enforce_input_project changes nothing here. Without
-        # a projection the kernel would stream hidden_dim channels.
+        # decoder.enforce_input_project; every preset (64 -> 256) does, so
+        # enforce_input_project changes nothing here. Without a projection
+        # the kernel would stream hidden_dim channels.
         if in_channels == E:
             raise ValueError(f"in_channels == hidden_dim ({E}): the decoder without an input "
                              "projection is not ported (ROADMAP queue 1 item 10, the "
                              "standard-backbone family)")
-        self.input_proj = nn.ModuleList([nn.Conv2d(in_channels, E, 1)])
+        self.input_proj = nn.ModuleList(nn.Conv2d(in_channels, E, 1)
+                                        for _ in range(num_feature_levels))
         self.transformer_cross_attention_layers = nn.ModuleList(
             _CrossLayer(E, nheads, kappa) for _ in range(dec_layers))
         self.transformer_self_attention_layers = nn.ModuleList(
@@ -175,44 +187,60 @@ class MeanShiftDecoder(nn.Module):
         d = self.decoder_norm(output)
         return self.class_embed(d), self.mask_embed(d)
 
-    def forward(self, x, mask_features, materialize_masks=False):
-        """x: [B, h, w, C] feature map; mask_features: [B, h, w, Cm] (NHWC, as
-        in the JAX package; NCHW-contiguous storage is used without a copy).
-        Returns pred_logits [B, Q, classes+1], mask_embed [B, Q, Cm],
-        aux_outputs (per-layer pred_logits) and, when materialize_masks,
-        pred_masks [B, Q, h, w] (full resolution at any key_stride), all in the
-        compute dtype."""
+    def _level(self, l, x, mask_features):
+        """The cross-attention inputs of level l: (featT, mfT at the keys,
+        positional factors, win, cin). x: [B, h, w, C] in the compute dtype."""
         B, h, w, _ = x.shape
-        E, s, dt = self.E, self.key_stride, self.dtype
-        x, mask_features = x.to(dt), mask_features.to(dt)
-        mfT = mask_features.permute(0, 3, 1, 2).reshape(B, -1, h * w).contiguous()
-        pos_y, pos_x = position_embedding_sine_factors(h, w, E // 2, device=x.device)
+        s, dt = self.key_stride, self.dtype
+        pos_y, pos_x = position_embedding_sine_factors(h, w, self.E // 2, device=x.device)
+        mf = mask_features
         if s > 1:
-            x, mf_keys = x[:, ::s, ::s], mask_features[:, ::s, ::s]
-            if mf_keys.shape[1:3] != x.shape[1:3]:
+            x, mf = x[:, ::s, ::s], mf[:, ::s, ::s]
+            if mf.shape[1:3] != x.shape[1:3]:
                 raise ValueError(f"key_stride={s}: strided mask_features "
-                                 f"{tuple(mf_keys.shape[1:3])} do not match the strided "
+                                 f"{tuple(mf.shape[1:3])} do not match the strided "
                                  f"feature level {tuple(x.shape[1:3])}; key_stride requires "
                                  "mask_features at the feature-map resolution")
             pos_y, pos_x = pos_y[:, ::s].contiguous(), pos_x[:, ::s].contiguous()
-            hk, wk = x.shape[1], x.shape[2]
-            mfT_keys = mf_keys.permute(0, 3, 1, 2).reshape(B, -1, hk * wk).contiguous()
-        else:
-            hk, wk, mfT_keys = h, w, mfT
+        elif mf.shape[1:3] != (h, w):
+            # resize(me . mf) == me . resize(mf): one resize of the mask
+            # features per level replaces the reference's per-layer resize
+            # of the mask logits (JAX decoder.py:370-374)
+            mf = resize_bilinear(mf, (h, w), align_corners=False)
+        hk, wk = x.shape[1], x.shape[2]
         featT = x.permute(0, 3, 1, 2).reshape(B, -1, hk * wk).contiguous()
-        pos = (pos_y.to(dt), pos_x.to(dt))
-        proj = self.input_proj[0]
-        win = proj.weight[:, :, 0, 0].T
-        cin = proj.bias + self.level_embed.weight[0]
+        mfT = mf.permute(0, 3, 1, 2).reshape(B, -1, hk * wk).contiguous()
+        proj = self.input_proj[l]
+        return (featT, mfT, (pos_y.to(dt), pos_x.to(dt)), proj.weight[:, :, 0, 0].T,
+                proj.bias + self.level_embed.weight[l])
+
+    def forward(self, x, mask_features, materialize_masks=False):
+        """x: [B, h, w, C] feature map, or a list of num_feature_levels of
+        them (lowest resolution first); mask_features: [B, H, W, Cm] (NHWC,
+        as in the JAX package; NCHW-contiguous storage is used without a
+        copy). Layer i attends level i % num_feature_levels, its mask from
+        the mask features resized to that level. Returns pred_logits
+        [B, Q, classes+1], mask_embed [B, Q, Cm], aux_outputs (per-layer
+        pred_logits) and, when materialize_masks, pred_masks [B, Q, H, W]
+        (at the mask features' resolution, at any key_stride), all in the
+        compute dtype."""
+        levels = [x] if isinstance(x, torch.Tensor) else list(x)
+        if len(levels) != self.num_levels:
+            raise ValueError(f"the decoder takes {self.num_levels} feature levels, "
+                             f"got {len(levels)}")
+        B, dt = levels[0].shape[0], self.dtype
+        mask_features = mask_features.to(dt)
+        inputs = [self._level(l, x.to(dt), mask_features) for l, x in enumerate(levels)]
 
         output = self.query_feat.weight.to(dt)[None].expand(B, -1, -1)
         qpos = self.query_embed.weight.to(dt)[None].expand(B, -1, -1)
         cls, me = self._heads(output)
         aux = [cls]
         for i in range(self.L):
+            featT, mfT, pos, win, cin = inputs[i % self.num_levels]
             ca = self.transformer_cross_attention_layers[i]
             output = ca.norm(output + ca.meanshift_attn.fused_cross(
-                output + qpos, featT, mfT_keys, me, pos, win, cin, self.tile_skip,
+                output + qpos, featT, mfT, me, pos, win, cin, self.tile_skip,
                 self.tile_skip_force_all))
             sa = self.transformer_self_attention_layers[i]
             qk = output + qpos
@@ -225,6 +253,7 @@ class MeanShiftDecoder(nn.Module):
         out = {"pred_logits": cls, "mask_embed": me,
                "aux_outputs": [{"pred_logits": c} for c in aux[:-1]]}
         if materialize_masks:
-            out["pred_masks"] = torch.einsum("bqc,bck->bqk", me, mfT).reshape(
-                B, -1, h, w)
+            _, H, W, Cm = mask_features.shape
+            mfT = mask_features.permute(0, 3, 1, 2).reshape(B, Cm, H * W)
+            out["pred_masks"] = torch.einsum("bqc,bck->bqk", me, mfT).reshape(B, -1, H, W)
         return out

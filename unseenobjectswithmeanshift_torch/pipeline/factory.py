@@ -2,7 +2,10 @@
 
 ``build_two_stage_predictor`` ports
 ``unseenobjectswithmeanshift_tpu.pipeline.factory.build_two_stage_predictor``
-(:20-108) for the UCN-backbone MSMFormer presets; ``build_ucn_predictor``
+(:20-108) for every MSMFormer preset: the UCN-backbone ones and the
+standard-backbone ones (``*_resnet50``, ``tabletop_swin``: ResNet50 or Swin,
+MSDeformAttn pixel decoder, 3-level decoder; ``models.meta_arch.build_model``
+picks the arch); ``build_ucn_predictor``
 builds the UCN pipeline (two SEGNETs, ``pipeline/ucn.py``). Weights are random
 from ``seed`` (through a ``torch.Generator``), numpy trees of the JAX package
 (``variables=``, carried over by ``weights.from_jax_variables`` /
@@ -14,9 +17,11 @@ Both networks compute in the whole-image configuration's ``dtype``
 so), as the JAX factory sets both configurations' dtype
 (JAX ``pipeline/factory.py:81-82``); parameters stay fp32.
 
-Nothing falls back: a preset of the standard-backbone family (ResNet50, Swin),
-a dtype other than those two, or a pairing that the JAX package cannot build
-either raises a ValueError that says why.
+Nothing falls back: a configuration the port does not build yet (ROADMAP
+queue 1 item 10: pre_norm, disable_attention_mask, softmax attention, the
+SEGNET networks other than ResNet34-8s), a dtype other than those two, or a
+pairing that the JAX package cannot build either raises a ValueError that
+says why.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from ..config import Config, get_config
 from ..models.compute import compute_dtype
-from ..models.meta_arch import MSMFormer
+from ..models.meta_arch import build_model, check_supported, is_standard
 from ..models.segnet import build_segnet
 from ..weights import (
     from_jax_segnet_variables, from_jax_variables, fuse_tower_state, init_random,
@@ -68,13 +73,14 @@ def _configs(preset, crop_preset, default_crop, cfg, cfg_crop, no_depth: bool, b
     compute_dtype(cfg.dtype)                         # raises on an unknown dtype
     cfg.dtype = cfg_crop.dtype = "bfloat16" if bf16 or cfg.dtype == "bfloat16" else "float32"
     for c in (cfg, cfg_crop):
-        if c.use_other_backbone or c.backbone.kind != "ucn":
-            raise ValueError(f"preset {c.name!r} (backbone.kind {c.backbone.kind!r}) is the "
-                             "standard-backbone family, not ported (ROADMAP queue 1 item 10)")
         if no_depth:
             c.use_depth = False
-            c.backbone.input_type = "COLOR"
-    if not cfg.use_depth and cfg_crop.backbone.input_type != "COLOR":
+            if not is_standard(c):                   # a standard backbone reads RGB only
+                c.backbone.input_type = "COLOR"
+    # backbone.input_type is the UCN SEGNET's: a standard-backbone crop
+    # network reads RGB whatever it says (JAX factory.py:70-75)
+    if (not cfg.use_depth and not is_standard(cfg_crop)
+            and cfg_crop.backbone.input_type != "COLOR"):
         raise ValueError(
             f"preset {cfg.name!r} reads no depth, so its crops carry none, but the crop "
             f"network {cfg_crop.name!r} takes {cfg_crop.backbone.input_type} input; the JAX "
@@ -128,10 +134,11 @@ def build_two_stage_predictor(preset: str = "tabletop_pretrained",
         if cfg_crop.decoder.num_feature_levels == 1:
             cfg_crop.decoder.key_stride = key_stride
     for c in (cfg, cfg_crop):
+        check_supported(c)
         c.decoder.tile_skip = c.decoder.tile_skip or tile_skip
     if checkpoint is not None and checkpoint_crop is None and variables_crop is None:
         checkpoint_crop = checkpoint
-    models = [_build(MSMFormer, c, _weights(v, ck, from_jax_variables), seed + i, device)
+    models = [_build(build_model, c, _weights(v, ck, from_jax_variables), seed + i, device)
               for i, (c, v, ck) in enumerate(((cfg, variables, checkpoint),
                                               (cfg_crop, variables_crop, checkpoint_crop)))]
     return TwoStagePredictor(models[0], models[1], cfg, cfg_crop)
@@ -154,6 +161,11 @@ def build_ucn_predictor(preset: str = "tabletop_pretrained",
     JAX ``UCNPredictor(dtype=jnp.bfloat16)``; the clustering stays fp32."""
     cfg, cfg_crop = _configs(preset, crop_preset, CROP_PRESET_FOR.get(preset, preset), cfg,
                              cfg_crop, no_depth, bf16)
+    for c in (cfg, cfg_crop):
+        if is_standard(c):
+            raise ValueError(f"preset {c.name!r} is a standard-backbone MSMFormer "
+                             f"(backbone.kind {c.backbone.kind!r}); the UCN pipeline runs the "
+                             "UCN SEGNET only. Serve it with build_two_stage_predictor.")
     if checkpoint is not None and checkpoint_crop is None and variables_crop is None:
         checkpoint_crop = checkpoint
     nets = [_build(build_segnet, c,

@@ -23,7 +23,6 @@ from typing import List, Optional
 import torch
 
 from ..config import Config
-from ..models.meta_arch import MSMFormer
 from .postprocess import (
     combine_masks, filter_labels_depth, get_confident_instances, instance_inference,
 )
@@ -62,12 +61,15 @@ class Stage1:
 class TwoStagePredictor:
     """Drives the whole-image network, the crops and the crop network.
 
-    model / model_crop: MSMFormer modules on one device, in eval mode.
+    model / model_crop: MSMFormer or StandardMaskFormer modules
+    (``models.meta_arch.build_model``) on one device, in eval mode; a
+    standard-backbone network reads the image only, and xyz serves the
+    depth filter and the crops.
     Inputs are [B, H, W, 3] normalized BGR images and [B, H, W, 3] XYZ maps
     (None for COLOR input), H and W padded to the size divisibility.
     """
 
-    def __init__(self, model: MSMFormer, model_crop: MSMFormer, cfg: Config,
+    def __init__(self, model, model_crop, cfg: Config,
                  cfg_crop: Optional[Config] = None):
         self.model = model.eval()
         self.model_crop = model_crop.eval()

@@ -128,14 +128,20 @@ def fuse_tower_state(state_dict) -> dict:
 _REFERENCE_KEYS = re.compile(
     r"((pretrained_backbone\.)?(fcn|fcn_depth)\.resnet34_8s\.(conv1|bn1|fc|layer\d+)\..*"
     r"|sem_seg_head\.pixel_decoder\.mask_features\.(weight|bias)"
+    r"|backbone\.(stem|res[2-5])\..*"
+    r"|backbone\.(patch_embed|norm\d|layers\.\d+\.(downsample|blocks\.\d+\.(norm[12]|mlp"
+    r"|attn\.(qkv|proj|relative_position_bias_table))))(\..*)?"
+    r"|sem_seg_head\.pixel_decoder\.(input_proj|transformer|adapter_\d+|layer_\d+)\..*"
     r"|sem_seg_head\.predictor\.(query_feat|query_embed|level_embed|static_query|input_proj"
     r"|transformer_(cross|self)_attention_layers|transformer_ffn_layers|decoder_norm"
     r"|class_embed|mask_embed)\..*)")
 
 
 def load_reference_checkpoint(path) -> dict:
-    """A reference ``.pth`` (a UCN SEGNET or a PretrainedMeanShiftMaskFormer
-    checkpoint) as a state_dict that the port's ``SEGNET`` or ``MSMFormer``
+    """A reference ``.pth`` (a UCN SEGNET, a PretrainedMeanShiftMaskFormer or
+    a standard-backbone MeanShiftMaskFormer checkpoint: detectron2 ResNet50
+    or Swin, MSDeformAttn pixel decoder, 3-level decoder) as a state_dict
+    that the port's ``SEGNET``, ``MSMFormer`` or ``StandardMaskFormer``
     loads with ``strict=True``. Read with ``torch.load(weights_only=True)``;
     detectron2's ``{"model": ...}`` wrapper is unwrapped, as the JAX
     package's ``load_torch_state_dict`` does. The legacy key rewrites and the
@@ -143,7 +149,8 @@ def load_reference_checkpoint(path) -> dict:
     ``convert_msmformer_checkpoint``: the ``module.`` and ``model.``
     prefixes are dropped, ``static_query`` becomes ``query_feat``, and keys
     that hold no weight of the network (criterion and embedding-loss
-    buffers, pixel statistics, SEGNET decoder keys) are left out."""
+    buffers, pixel statistics, SEGNET decoder keys, Swin's
+    ``relative_position_index``) are left out."""
     data = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(data, dict) and isinstance(data.get("model"), dict):
         data = data["model"]                       # detectron2 checkpointer format
@@ -156,25 +163,178 @@ def load_reference_checkpoint(path) -> dict:
             continue
         sd[key.replace("predictor.static_query.", "predictor.query_feat.")] = value
     if not sd:
-        raise ValueError(f"{path} holds no SEGNET or MSMFormer weights")
+        raise ValueError(f"{path} holds no SEGNET, MSMFormer or MeanShiftMaskFormer weights")
     return sd
 
 
 def from_jax_variables(variables) -> dict:
-    """{"params", "batch_stats"} numpy tree of the JAX MSMFormer -> state_dict."""
+    """{"params", "batch_stats"} numpy tree of the JAX MSMFormer or
+    StandardMaskFormer -> state_dict of the port's model of that arch."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd = {}
-    bb, bbs = params["pretrained_backbone"], stats["pretrained_backbone"]
-    for tower in ("fcn", "fcn_depth"):      # one tower or two
-        if tower in bb:
-            _backbone(bb[tower], bbs[tower], f"pretrained_backbone.{tower}.resnet34_8s.", sd)
-    pd = params["pixel_decoder"]
-    if "mask_features" in pd:
-        sd["sem_seg_head.pixel_decoder.mask_features.weight"] = _conv(pd["mask_features"]["kernel"])
-        sd["sem_seg_head.pixel_decoder.mask_features.bias"] = _t(pd["mask_features"]["bias"])
+    if "backbone" in params:                 # StandardMaskFormer
+        bb = params["backbone"]
+        if "patch_embed" in bb:
+            _swin_backbone(bb, sd)
+        else:
+            _d2_resnet(bb, stats["backbone"], sd)
+        _pixel_decoder(params["pixel_decoder"], sd)
+    else:
+        bb, bbs = params["pretrained_backbone"], stats["pretrained_backbone"]
+        for tower in ("fcn", "fcn_depth"):      # one tower or two
+            if tower in bb:
+                _backbone(bb[tower], bbs[tower], f"pretrained_backbone.{tower}.resnet34_8s.", sd)
+        pd = params["pixel_decoder"]
+        if "mask_features" in pd:
+            sd["sem_seg_head.pixel_decoder.mask_features.weight"] = _conv(
+                pd["mask_features"]["kernel"])
+            sd["sem_seg_head.pixel_decoder.mask_features.bias"] = _t(pd["mask_features"]["bias"])
+    _predictor(params["predictor"], sd)
+    return sd
 
+
+def _norm(p, key, sd):
+    sd[key + ".weight"], sd[key + ".bias"] = _t(p["scale"]), _t(p["bias"])
+
+
+def _linear(p, key, sd):
+    sd[key + ".weight"] = _dense(p["kernel"])
+    if "bias" in p:
+        sd[key + ".bias"] = _t(p["bias"])
+
+
+def _conv_leaf(p, key, sd):
+    sd[key + ".weight"] = _conv(p["kernel"])
+    if "bias" in p:
+        sd[key + ".bias"] = _t(p["bias"])
+
+
+def _d2_resnet(params, stats, sd):
+    """JAX ResNetBackbone tree -> detectron2 keys (``backbone.stem.conv1``,
+    ``backbone.res{s}.{b}.conv{i}`` / ``.shortcut``, each with ``.norm``)."""
+    def conv_bn(p, s, conv, bn, key):
+        sd[key + ".weight"] = _conv(p[conv]["kernel"])
+        _norm(p[bn], key + ".norm", sd)
+        sd[key + ".norm.running_mean"] = _t(s[bn]["mean"])
+        sd[key + ".norm.running_var"] = _t(s[bn]["var"])
+
+    conv_bn(params, stats, "stem_conv1", "stem_bn1", "backbone.stem.conv1")
+    for name, p in params.items():
+        m = re.fullmatch(r"res(\d)_(\d+)", name)
+        if not m:
+            continue
+        key = f"backbone.res{m.group(1)}.{m.group(2)}."
+        for i in (1, 2, 3):
+            conv_bn(p, stats[name], f"conv{i}", f"bn{i}", f"{key}conv{i}")
+        if "downsample_conv" in p:
+            conv_bn(p, stats[name], "downsample_conv", "downsample_bn", key + "shortcut")
+
+
+# the JAX PatchMerging concatenates the 2x2 neighbours as (row, col) =
+# (0,0), (0,1), (1,0), (1,1); the reference (and the port) as (0,0), (1,0),
+# (0,1), (1,1): quarters 1 and 2 swap
+_MERGE_ORDER = (0, 2, 1, 3)
+
+
+def _merge_perm(n4: int):
+    q = n4 // 4
+    return np.concatenate([np.arange(q) + q * j for j in _MERGE_ORDER])
+
+
+def _swin_backbone(params, sd):
+    """JAX SwinTransformer tree -> reference D2SwinTransformer keys, with the
+    merged channels of each PatchMerging reordered from the JAX package's
+    concatenation to the reference's (the same function at whole-window
+    sizes)."""
+    B = "backbone."
+    _conv_leaf(params["patch_embed"], B + "patch_embed.proj", sd)
+    _norm(params["patch_norm"], B + "patch_embed.norm", sd)
+    for name, p in params.items():
+        m = re.fullmatch(r"stage(\d+)_block(\d+)|merge(\d+)|out_norm(\d+)", name)
+        if not m:
+            continue
+        st, blk, mg, on = m.groups()
+        if blk is not None:
+            key = f"{B}layers.{st}.blocks.{blk}."
+            _norm(p["norm1"], key + "norm1", sd)
+            _norm(p["norm2"], key + "norm2", sd)
+            _linear(p["attn"]["qkv"], key + "attn.qkv", sd)
+            _linear(p["attn"]["proj"], key + "attn.proj", sd)
+            sd[key + "attn.relative_position_bias_table"] = _t(
+                p["attn"]["relative_position_bias_table"])
+            _linear(p["mlp_fc1"], key + "mlp.fc1", sd)
+            _linear(p["mlp_fc2"], key + "mlp.fc2", sd)
+        elif mg is not None:
+            key = f"{B}layers.{mg}.downsample."
+            inv = np.argsort(_merge_perm(np.asarray(p["norm"]["scale"]).shape[0]))
+            sd[key + "norm.weight"] = _t(np.asarray(p["norm"]["scale"])[inv])
+            sd[key + "norm.bias"] = _t(np.asarray(p["norm"]["bias"])[inv])
+            sd[key + "reduction.weight"] = _t(np.asarray(p["reduction"]["kernel"])[inv].T)
+        else:
+            _norm(p, f"{B}norm{on}", sd)
+
+
+def _pixel_decoder(pd, sd):
+    """JAX pixel-decoder tree (MSDeformAttn, FPN or transformer-encoder) ->
+    the reference's keys. The JAX MSDeformAttn decoder adds level_embed[L-1-l]
+    to level l (res5 first); the reference (and the port) adds level_embed[l],
+    so the rows are reversed (the same function)."""
+    P = "sem_seg_head.pixel_decoder."
+    n_fpn = sum(1 for k in pd if k.startswith("output_conv_"))   # FPN levels
+    for name, p in pd.items():
+        m = re.fullmatch(r"(input_proj|input_norm|encoder_layer|adapter|adapter_norm|layer"
+                         r"|layer_norm|output_conv|output_norm|lateral_conv|lateral_norm)_(\d+)",
+                         name)
+        if name == "level_embed":
+            sd[P + "transformer.level_embed"] = _t(np.asarray(p)[::-1])
+        elif name == "mask_features":
+            _conv_leaf(p, P + "mask_features", sd)
+        elif name == "input_proj":                    # transformer-encoder decoder
+            _conv_leaf(p, P + "input_proj", sd)
+        elif m is None:
+            continue
+        else:
+            kind, i = m.group(1), int(m.group(2))
+            if kind == "input_proj":
+                _conv_leaf(p, f"{P}input_proj.{i}.0", sd)
+            elif kind == "input_norm":
+                _norm(p, f"{P}input_proj.{i}.1", sd)
+            elif kind == "encoder_layer":
+                key = f"{P}transformer.encoder.layers.{i}."
+                for sub in ("norm1", "norm2"):
+                    _norm(p[sub], key + sub, sd)
+                for sub in ("linear1", "linear2"):
+                    _linear(p[sub], key + sub, sd)
+                a = p["self_attn"]
+                if "q_kernel" in a:                  # softmax attention
+                    _mha(a, key + "self_attn.", sd)
+                else:
+                    for sub in ("sampling_offsets", "attention_weights", "value_proj",
+                                "output_proj"):
+                        _linear(a[sub], f"{key}self_attn.{sub}", sd)
+            elif kind in ("adapter", "layer"):       # MSDeformAttn extra FPN level
+                sd[f"{P}{kind}_{i + 1}.weight"] = _conv(p["kernel"])
+            elif kind in ("adapter_norm", "layer_norm"):
+                _norm(p, f"{P}{kind[:-5]}_{i + 1}.norm", sd)
+            else:                                     # FPN: index 0 = res5 = layer_{n}
+                n = n_fpn - i
+                mod = {"output": "layer", "lateral": "adapter"}[kind.split("_")[0]]
+                if kind.endswith("conv"):
+                    sd[f"{P}{mod}_{n}.weight"] = _conv(p["kernel"])
+                else:
+                    _norm(p, f"{P}{mod}_{n}.norm", sd)
+
+
+def _mha(leaf, mod, sd):
+    sd[mod + "in_proj_weight"] = torch.cat([_dense(leaf[f"{x}_kernel"]) for x in "qkv"], 0)
+    sd[mod + "in_proj_bias"] = torch.cat([_t(leaf[f"{x}_bias"]) for x in "qkv"], 0)
+    sd[mod + "out_proj.weight"] = _dense(leaf["out_kernel"])
+    sd[mod + "out_proj.bias"] = _t(leaf["out_bias"])
+
+
+def _predictor(pr, sd):
+    """JAX MeanShiftDecoder tree -> ``sem_seg_head.predictor.*``."""
     P = "sem_seg_head.predictor."
-    pr = params["predictor"]
     for name in ("query_feat", "query_embed", "level_embed"):
         sd[P + name + ".weight"] = _t(pr[name])
     for name, leaf in pr.items():
@@ -183,66 +343,96 @@ def from_jax_variables(variables) -> dict:
             continue
         kind, what, i, ffn, j, l = m.groups()
         if l is not None:
-            sd[f"{P}input_proj.{l}.weight"] = _conv(leaf["kernel"])
-            sd[f"{P}input_proj.{l}.bias"] = _t(leaf["bias"])
+            _conv_leaf(leaf, f"{P}input_proj.{l}", sd)
         elif ffn is not None:
             key = f"{P}transformer_ffn_layers.{j}."
             if ffn == "norm":
-                sd[key + "norm.weight"], sd[key + "norm.bias"] = _t(leaf["scale"]), _t(leaf["bias"])
+                _norm(leaf, key + "norm", sd)
             else:
-                lin = "linear1" if ffn == "lin1" else "linear2"
-                sd[key + lin + ".weight"], sd[key + lin + ".bias"] = _dense(leaf["kernel"]), _t(leaf["bias"])
+                _linear(leaf, key + ("linear1" if ffn == "lin1" else "linear2"), sd)
         else:
             key = f"{P}transformer_{kind}_attention_layers.{i}."
             if what == "norm":
-                sd[key + "norm.weight"], sd[key + "norm.bias"] = _t(leaf["scale"]), _t(leaf["bias"])
+                _norm(leaf, key + "norm", sd)
             else:
-                mod = key + ("meanshift_attn." if kind == "cross" else "self_attn.")
-                sd[mod + "in_proj_weight"] = torch.cat(
-                    [_dense(leaf[f"{x}_kernel"]) for x in "qkv"], 0)
-                sd[mod + "in_proj_bias"] = torch.cat([_t(leaf[f"{x}_bias"]) for x in "qkv"], 0)
-                sd[mod + "out_proj.weight"] = _dense(leaf["out_kernel"])
-                sd[mod + "out_proj.bias"] = _t(leaf["out_bias"])
-    for name in ("decoder_norm",):
-        sd[P + name + ".weight"], sd[P + name + ".bias"] = _t(pr[name]["scale"]), _t(pr[name]["bias"])
-    sd[P + "class_embed.weight"] = _dense(pr["class_embed"]["kernel"])
-    sd[P + "class_embed.bias"] = _t(pr["class_embed"]["bias"])
+                _mha(leaf, key + ("meanshift_attn." if kind == "cross" else "self_attn."), sd)
+    _norm(pr["decoder_norm"], P + "decoder_norm", sd)
+    _linear(pr["class_embed"], P + "class_embed", sd)
     for name, leaf in pr["mask_embed"].items():
-        j = name.split("_")[1]
-        sd[f"{P}mask_embed.layers.{j}.weight"] = _dense(leaf["kernel"])
-        sd[f"{P}mask_embed.layers.{j}.bias"] = _t(leaf["bias"])
-    return sd
+        _linear(leaf, f"{P}mask_embed.layers.{name.split('_')[1]}", sd)
 
 
 @torch.no_grad()
 def init_random(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights with the JAX package's initializers: convs
     lecun-normal, linear and attention kernels xavier-uniform (q/k/v each on
-    its own [E, E] block), embeddings standard normal, biases zero, norms
-    identity, BatchNorm statistics mean 0 / variance 1. Sets every parameter
-    and buffer, so the model may come from ``to_empty``."""
+    its own [E, E] block; Swin's linear kernels and bias tables truncated
+    normal 0.02), embeddings and level embeddings standard normal, biases
+    zero, norms identity, BatchNorm statistics mean 0 / variance 1, the
+    deformable attention's offset and weight kernels zero with the
+    reference's offset bias. Sets every parameter and buffer, so the model
+    may come from ``to_empty``."""
+    from .models.backbone_resnet import FrozenBatchNorm2d
     from .models.decoder import MeanShiftAttention
+    from .models.pixel_decoders import SoftmaxAttention, _EncoderOnly
+    from .models.swin import SwinTransformer, WindowAttention
+    from .ops.ms_deform_attn import MSDeformAttn
 
+    swin = {id(sub) for m in model.modules() if isinstance(m, SwinTransformer)
+            for sub in m.modules()}
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if id(m) in swin and isinstance(m, (nn.Linear, WindowAttention)):
+            _trunc_normal(m.weight if isinstance(m, nn.Linear)
+                          else m.relative_position_bias_table, generator)
+            if isinstance(m, nn.Linear) and m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Conv2d):
             fan_in = m.weight[0].numel()
             m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Linear):
             nn.init.xavier_uniform_(m.weight, generator=generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=generator)
-        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d, nn.GroupNorm, FrozenBatchNorm2d)):
             m.weight.fill_(1.0)
             m.bias.zero_()
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, (nn.BatchNorm2d, FrozenBatchNorm2d)):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+            if isinstance(m, nn.BatchNorm2d):
                 m.num_batches_tracked.zero_()
-        elif isinstance(m, MeanShiftAttention):
+        elif isinstance(m, (MeanShiftAttention, SoftmaxAttention)):
             for w in m.in_proj_weight.chunk(3):
                 nn.init.xavier_uniform_(w, generator=generator)
             m.in_proj_bias.zero_()
+        elif isinstance(m, _EncoderOnly):
+            m.level_embed.normal_(0.0, 1.0, generator=generator)
+    for m in model.modules():      # the deformable attention's init over the defaults
+        if isinstance(m, MSDeformAttn):
+            m.sampling_offsets.weight.zero_()
+            m.sampling_offsets.bias.copy_(_offset_bias(m.n_heads, m.n_levels, m.n_points))
+            m.attention_weights.weight.zero_()
     return model
+
+
+def _trunc_normal(t, generator, std=0.02):
+    """flax's truncated_normal(std): a normal truncated at two of its
+    standard deviations, scaled so that the truncated one has std."""
+    s = std / 0.87962566
+    nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s, generator=generator)
+
+
+def _offset_bias(n_heads: int, n_levels: int, n_points: int):
+    """The reference's sampling-offset bias: per-head unit directions at
+    angles 2 pi h / H, scaled by the point index (JAX ms_deform_attn.py
+    _offset_bias_init; ref: ms_deform_attn.py _reset_parameters)."""
+    thetas = np.arange(n_heads, dtype=np.float32) * (2.0 * np.pi / n_heads)
+    grid = np.stack([np.cos(thetas), np.sin(thetas)], -1)
+    grid = grid / np.abs(grid).max(-1, keepdims=True)
+    grid = np.tile(grid[:, None, None, :], (1, n_levels, n_points, 1))
+    grid *= np.arange(1, n_points + 1, dtype=np.float32)[None, None, :, None]
+    return torch.from_numpy(grid.reshape(-1).astype(np.float32))
