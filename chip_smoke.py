@@ -142,6 +142,28 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             frame with bf16=True against fp32; one frame each of
             tabletop_swin, pushing_resnet50 (with depth), uoais_resnet50 and
             mixture_resnet50 in fp32 and in bf16, 9 + 9 launches each.
+23. train_check  one train step (forward and backward) of the full-width
+            tabletop_pretrained network at 96x128, B=2, on a batch the port's
+            renderer made on the card, against a CPU copy on the same
+            weights, batch and draws: every loss term and the global
+            gradient norm (TRAIN_CPU_TOL); the chunked two-pass training
+            attention at K=40,000 (past 32,768) in fp32 against the dense
+            masked attention in fp64, output and every gradient
+            (TWOPASS_TOL); a NaN-poisoned batch skipped with the parameters,
+            running statistics and optimizer state unchanged (torch.equal).
+24. train_main  training at full width through Trainer: the whole-image
+            network, B=4 at 480x640 from SyntheticDeviceLoader, 8 steps on a
+            fixed batch (median step ms after 2 warm-ups, every loss term,
+            peak memory, skips; gates: finite, the loss falls); the same for
+            the crop network on 224^2 SYN_CROP crops; 3 bf16 steps, step 0's
+            loss within 5% of fp32's on the same weights and batch; both
+            networks saved with checkpoint_io, restored, and served through
+            build_two_stage_predictor(checkpoint=...) on one 480x640 frame
+            (6 + 6 cross-attention launches; stage 2 refines main's decisive
+            stage-1 crops of the frame when the briefly trained network
+            finds no instance in it). With --weights,
+            8 fine-tuning steps from them, beside the release's logged
+            losses (no gate).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure ends the run with a
@@ -150,7 +172,9 @@ traceback and a non-zero exit code. Without CUDA the script fails at once.
 
 import argparse
 import contextlib
+import copy
 import json
+import os
 import math
 import re
 import statistics
@@ -162,12 +186,16 @@ import torch
 import torch.nn.functional as F
 
 from unseenobjectswithmeanshift_torch.config import get_config
+from unseenobjectswithmeanshift_torch.data.synthetic_device import SyntheticDeviceLoader
 from unseenobjectswithmeanshift_torch.models import decoder as decoder_module
 from unseenobjectswithmeanshift_torch.models.position_encoding import position_embedding_sine
 from unseenobjectswithmeanshift_torch.ops import _build
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
     TILE_KEYS, fused_uoms_cross_attention, fused_uoms_cross_attention_plain, launch_plan,
     mask_pass, tile_occupancy, unmasked_keys,
+)
+from unseenobjectswithmeanshift_torch.ops.hypersphere_attention import (
+    bool_mask_to_bias, chunked_masked_meanshift_attention_twopass, meanshift_attention,
 )
 from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
     fused_masked_hypersphere_attention, fused_masked_hypersphere_attention_plain,
@@ -183,8 +211,10 @@ from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
 from unseenobjectswithmeanshift_torch.pipeline.factory import (
     build_two_stage_predictor, build_ucn_predictor,
 )
+from unseenobjectswithmeanshift_torch.train.trainer import Trainer, new_model
+from unseenobjectswithmeanshift_torch.utils import checkpoint_io
 from unseenobjectswithmeanshift_torch.utils.preprocess import compute_xyz
-from unseenobjectswithmeanshift_torch.weights import load_npz_variables
+from unseenobjectswithmeanshift_torch.weights import from_jax_variables, load_npz_variables
 
 # Kernel vs plain: the kernel (fp32 data, products in 3xTF32) is held against
 # its plain version evaluated in fp64 on the same inputs. The plain version in
@@ -2190,10 +2220,279 @@ def r50_main_phase(results):
     return launches, bf16_launches
 
 
+# Training (the JAX package's second main path). The JAX train step runs no
+# Pallas kernel (use_pallas is off in training: the decoder's unfused path),
+# so no kernel is held here; the train step on the card is held to the
+# port's own CPU copy, on the same weights, batch and draws.
+#
+# TRAIN_CPU_TOL: every loss term and the global gradient norm of the
+# full-width network on the card within 1e-3 of the CPU copy's, relative.
+# Both run fp32 with TF32 off; cuDNN and cuBLAS sum in other orders than the
+# CPU kernels, and kappa-30 attention and the LayerNorms amplify that to
+# ~1e-5 at the toy widths of the CPU tests; the mask logits' signs and the
+# assignment are discrete, so a near-tie may move a term further. A wrong
+# layout, weight or draw shows as O(0.1). The deviations are printed.
+TRAIN_CPU_TOL = 1e-3
+# TWOPASS_TOL: the chunked two-pass attention in fp32 against the dense
+# masked attention in fp64 on the same inputs, forward and every gradient,
+# each within 1e-4 of its scale (kappa 30 over 40,000 keys; a dropped chunk
+# or a wrong guard shows as O(1)).
+TWOPASS_TOL = 1e-4
+TRAIN_HW, CROP_HW, TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP, BF16_STEPS = (480, 640), 224, 4, 8, 2, 3
+R5_METRICS = "checkpoints/msmformer_synthetic_r5_metrics.jsonl"
+
+
+def scale_dev(got, want):
+    """max |got - want| over max |want|, in fp64."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def grad_norm(model):
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))).item()
+
+
+def train_cpu_agreement(results):
+    """One train step's forward and backward of the full-width
+    tabletop_pretrained network at 96x128, B=2, on a batch the port's
+    renderer made on the card: loss terms and the global gradient norm on
+    the card against a CPU copy (TRAIN_CPU_TOL)."""
+    cfg = get_config("tabletop_pretrained")
+    tr = Trainer(cfg, device="cuda", seed=0)
+    batch = SyntheticDeviceLoader(2, height=96, width=128, max_gt=cfg.loss.max_gt_instances,
+                                  seed=0).batch_at(0)
+    draws = tr.draws(batch)
+    cpu = Trainer(cfg, device="cpu", seed=0, model=copy.deepcopy(tr.model).cpu())
+    total, losses = tr.gradients(batch, draws)
+    want_total, want = cpu.gradients({k: v.cpu() for k, v in batch.items()}, draws.to("cpu"))
+    dev = {k: abs(float(losses[k]) - float(want[k])) / max(abs(float(want[k])), 1e-3)
+           for k in want}
+    dev["total_loss"] = abs(float(total.detach()) - float(want_total)) / abs(float(want_total))
+    norms = grad_norm(tr.model), grad_norm(cpu.model)
+    dev["grad_norm"] = abs(norms[0] - norms[1]) / norms[1]
+    worst = max(dev, key=dev.get)
+    results["cpu_agreement"] = {"total_loss": float(total), "grad_norm": norms[0],
+                                "deviation": dev}
+    total = total.detach()
+    sync_print(f"train_check full width 96x128 B=2: total_loss card {float(total):.6f} cpu "
+               f"{float(want_total):.6f}, grad_norm card {norms[0]:.6f} cpu {norms[1]:.6f}; "
+               f"worst relative deviation {dev[worst]:.2e} ({worst}; tol {TRAIN_CPU_TOL:.0e}; "
+               f"{len(want)} loss terms)")
+    if dev[worst] > TRAIN_CPU_TOL:
+        raise AssertionError("the train step on the card disagrees with its CPU copy")
+    return tr, batch
+
+
+def twopass_check(results, K=40000):
+    """The chunked two-pass attention (B=1, Q=100, E=256, 8 heads, K keys:
+    5 chunks of 8,192, the last short; 3 guard rows) in fp32 against the
+    dense masked attention in fp64: output and the gradients of query, key,
+    value and every projection (TWOPASS_TOL)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, Qn, En = 1, 100, 256
+    rnd = lambda *s, sc=1.0: torch.randn(*s, generator=g, device="cuda") * sc   # noqa: E731
+    leaves = [rnd(B, Qn, En), rnd(B, K, En), rnd(B, K, En), rnd(3 * En, En, sc=En ** -0.5),
+              rnd(3 * En, sc=0.1), rnd(En, En, sc=En ** -0.5), rnd(En, sc=0.1)]
+    logits = rnd(B, Qn, K)
+    logits[0, :3] = -1.0 - logits[0, :3].abs()
+    cot = rnd(B, Qn, En)
+    x32 = [t.clone().requires_grad_() for t in leaves]
+    x64 = [t.double().requires_grad_() for t in leaves]
+    out32 = chunked_masked_meanshift_attention_twopass(*x32[:3], *x32[3:], 8, logits >= 0)
+    (out32 * cot).sum().backward()
+    out64, _ = meanshift_attention(*x64[:3], *x64[3:], 8,
+                                   mask_bias=bool_mask_to_bias(logits < 0).double())
+    (out64 * cot.double()).sum().backward()
+    names = ("out", "d_query", "d_key", "d_value", "d_in_proj_weight", "d_in_proj_bias",
+             "d_out_weight", "d_out_bias")
+    dev = dict(zip(names, [scale_dev(out32.detach(), out64.detach())]
+                   + [scale_dev(a.grad, b.grad) for a, b in zip(x32, x64)]))
+    results["twopass_vs_fp64"] = dev
+    sync_print(f"train_check twopass K={K} vs dense fp64: "
+               + " ".join(f"{k}={v:.2e}" for k, v in dev.items()) + f" (tol {TWOPASS_TOL:.0e})")
+    if max(dev.values()) > TWOPASS_TOL:
+        raise AssertionError("the chunked training attention disagrees with fp64")
+
+
+def train_check_phase():
+    """23. the train step on the card against its CPU copy, the chunked
+    attention against fp64, and the non-finite skip."""
+    results = {}
+    tr, batch = train_cpu_agreement(results)
+    twopass_check(results)
+    state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    bad = dict(batch, image=batch["image"].clone())
+    bad["image"][0, 0, 0, 0] = float("nan")
+    metrics = tr.train_step(bad)
+    skipped = float(metrics["skipped_nonfinite"])
+    unchanged = all(torch.equal(v, tr.model.state_dict()[k]) for k, v in state.items())
+    results["nonfinite"] = {"skipped_nonfinite": skipped, "unchanged": unchanged,
+                            "optimizer_state_empty": not tr.optimizer.state}
+    sync_print(f"train_check NaN batch: skipped_nonfinite={skipped:.0f}, parameters and "
+               f"running statistics unchanged={unchanged}, optimizer state untouched="
+               f"{not tr.optimizer.state}")
+    if skipped != 1.0 or not unchanged or tr.optimizer.state:
+        raise AssertionError("a non-finite step changed the training state")
+    return results
+
+
+def train_steps(tag, cfg, batch, steps, warmup=TRAIN_WARMUP, model=None, gate=True):
+    """`steps` train steps on one fixed batch from seed-0 weights (or
+    `model`): host-clock ms of each step (synchronized), every loss term,
+    peak memory, skips. Gates (with gate): every loss finite, the total
+    loss falls from the first step to the last. -> (trainer, summary)."""
+    tr = Trainer(cfg, device="cuda", seed=0, model=model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        metrics.append(m)
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    summary = {"step_ms_median": statistics.median(times[warmup:]), "step_ms": times,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "skipped": sum(m["skipped_nonfinite"] for m in metrics),
+               "total_loss": [m["total_loss"] for m in metrics], "last": metrics[-1],
+               "first": metrics[0], "shape": tuple(batch["image"].shape)}
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+    sync_print(f"train_main {tag}: image {summary['shape']} steps={steps} step_ms median of "
+               f"{steps - warmup} after {warmup} warm-ups = {summary['step_ms_median']:.1f} (all "
+               f"{', '.join(f'{t:.1f}' for t in times)}) peak_memory={summary['peak_gib']:.2f} "
+               f"GiB skipped={summary['skipped']:.0f}; total_loss "
+               + " ".join(f"{v:.4f}" for v in summary["total_loss"]))
+    sync_print(f"train_main {tag} last step: " + " ".join(
+        f"{k}={v:.4f}" for k, v in sorted(metrics[-1].items())))
+    if gate and not (finite and summary["skipped"] == 0
+                     and summary["total_loss"][-1] < summary["total_loss"][0]):
+        raise AssertionError(f"train_main {tag}: a loss is not finite, a step was skipped or "
+                             "the loss on the fixed batch did not fall")
+    return tr, summary
+
+
+def serve_checkpoints(results, whole, crop):
+    """Save both trained networks with checkpoint_io, restore them into fresh
+    trainers (equal state), and serve one 480x640 frame through
+    build_two_stage_predictor(checkpoint=..., checkpoint_crop=...): 6
+    cross-attention launches in stage 1 and 6 in stage 2. Eight steps from
+    random weights leave every mask of this frame empty (measured: no
+    instance, even made decisive as main's), so when stage 1 gives no crop,
+    the served crop network refines the crops that main's decisive stage 1
+    cuts from the same frame."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for tr in (whole, crop):
+            path = checkpoint_io.save(os.path.join(d, f"{tr.cfg.name}.pth"), tr)
+            fresh = Trainer(tr.cfg, device="cuda", seed=1)
+            assert checkpoint_io.restore(path, fresh) == tr.step
+            assert all(torch.equal(v, fresh.model.state_dict()[k])
+                       for k, v in tr.model.state_dict().items()), "restore changed the weights"
+            paths.append(path)
+        pred = build_two_stage_predictor(checkpoint=paths[0], checkpoint_crop=paths[1])
+    for model, tr in ((pred.model, whole), (pred.model_crop, crop)):
+        assert all(torch.equal(v, model.state_dict()[k])
+                   for k, v in tr.model.state_dict().items()), "the served weights differ"
+    image, xyz = synthetic_rgbd(seed=0)
+    zero_counts()
+    s1 = pred.stage1(image, xyz)
+    torch.cuda.synchronize()
+    n1 = fused_uoms_cross_attention.launches
+    crops = int(sum(int(c.present.sum()) for c in s1.crops))
+    source = "trained stage 1"
+    if not crops:
+        s1 = decisive_predictor(seed=0).stage1(image, xyz)
+        crops = int(sum(int(c.present.sum()) for c in s1.crops))
+        source = "main's decisive stage 1"
+    torch.cuda.synchronize()
+    before = fused_uoms_cross_attention.launches
+    refined = pred.refine(s1)
+    torch.cuda.synchronize()
+    n2 = fused_uoms_cross_attention.launches - before
+    serve = {"launches_stage1": n1, "launches_stage2": n2, "crops": crops, "crops_from": source,
+             "refined_instances": int((refined.unique() >= 1).sum())}
+    results["serve_after_train"] = serve
+    sync_print(f"train_main serve after train: {serve}")
+    assert n1 == 6 and n2 == 6 and crops >= 1, f"serve-after-train launches {n1} + {n2}"
+    assert refined.shape == (1, 480, 640) and refined.dtype == torch.int32
+    return serve
+
+
+def finetune_from(results, weights):
+    """With --weights: 8 steps from those weights (the embedding loss on, as
+    r5 was trained) on the loader's stream, the losses beside the last
+    records of the release's metrics.jsonl. No gate."""
+    cfg = get_config("tabletop_pretrained")
+    cfg.loss.use_embedding_loss = True
+    model = new_model(cfg, 0, "cpu")
+    model.load_state_dict(from_jax_variables(load_npz_variables(weights)))
+    loader = SyntheticDeviceLoader(TRAIN_BATCH, max_gt=cfg.loss.max_gt_instances, seed=0)
+    tr = Trainer(cfg, device="cuda", seed=0, model=model.cuda())
+    losses = []
+    for step in range(TRAIN_STEPS):
+        m = tr.train_step(loader.batch_at(step))
+        losses.append({k: float(v) for k, v in m.items()})
+    results["finetune"] = losses
+    sync_print("train_main fine-tune from --weights, total_loss per step: "
+               + " ".join(f"{m['total_loss']:.4f}" for m in losses))
+    beside = os.path.join(os.path.dirname(weights), os.path.basename(R5_METRICS))
+    metrics = next((m for m in (R5_METRICS, beside) if os.path.exists(m)), None)
+    if metrics:
+        with open(metrics) as f:
+            last = [json.loads(line) for line in f if '"train"' in line][-3:]
+        sync_print("train_main the release's last logged steps (JAX package, TPU run): "
+                   + "; ".join(f"iter {r['iter']} total_loss {r['total_loss']:.4f}"
+                               for r in last))
+    else:
+        sync_print(f"train_main: no {os.path.basename(R5_METRICS)} in {R5_METRICS} or "
+                   "beside the weights")
+
+
+def train_main_phase(results, weights=None):
+    """24. training at full width: the whole-image network at 480x640 and the
+    crop network on 224^2 SYN_CROP crops, B=4, 8 steps each on a fixed
+    batch from SyntheticDeviceLoader; 3 bf16 steps against fp32's first;
+    checkpoints served after training."""
+    cfg = get_config("tabletop_pretrained")
+    G = cfg.loss.max_gt_instances
+    batch = SyntheticDeviceLoader(TRAIN_BATCH, *TRAIN_HW, max_gt=G, seed=0).batch_at(0)
+    whole, results["whole"] = train_steps("whole-image fp32", cfg, batch, TRAIN_STEPS)
+    crop_cfg = get_config("crop_tabletop_pretrained")
+    crop_batch = SyntheticDeviceLoader(TRAIN_BATCH, max_gt=G, seed=0, syn_crop=True,
+                                       crop_size=CROP_HW).batch_at(0)
+    crop, results["crop"] = train_steps("crop fp32", crop_cfg, crop_batch, TRAIN_STEPS)
+    cfg16 = copy.deepcopy(cfg)
+    cfg16.dtype = "bfloat16"
+    tr16, results["whole_bf16"] = train_steps("whole-image bf16", cfg16, batch, BF16_STEPS,
+                                              warmup=1, gate=False)
+    first32 = results["whole"]["first"]["total_loss"]
+    first16 = results["whole_bf16"]["first"]["total_loss"]
+    rel = abs(first16 - first32) / abs(first32)
+    results["whole_bf16"]["step0_vs_fp32"] = rel
+    sync_print(f"train_main bf16 step 0 total_loss {first16:.4f} vs fp32 {first32:.4f}: "
+               f"relative {rel:.2e} (tol 5e-2)")
+    finite = all(math.isfinite(v) for v in results["whole_bf16"]["total_loss"])
+    if not finite or rel > 0.05 or results["whole_bf16"]["skipped"]:
+        raise AssertionError("bf16 training is not finite or its first loss is off fp32's")
+    del tr16
+    torch.cuda.empty_cache()
+    serve_checkpoints(results, whole, crop)
+    if weights:
+        del whole, crop
+        torch.cuda.empty_cache()
+        finetune_from(results, weights)
+    return results
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     p.add_argument("--weights", help="a .npz export of one MSMFormer release "
-                   "(scripts/export_release_npz.py): tile_skip_main runs on it too")
+                   "(scripts/export_release_npz.py): tile_skip_main and bf16_main run on it "
+                   "too, and train_main fine-tunes it")
     opts = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2349,6 +2648,16 @@ def main(argv=None):
     r50_launches, r50_bf16_launches = r50_main_phase(r50_main)
     phase_done("r50_main", t0)
 
+    # 23-24. training
+    t0 = time.perf_counter()
+    train_results = {"check": train_check_phase()}
+    torch.cuda.empty_cache()
+    phase_done("train_check", t0)
+    t0 = time.perf_counter()
+    train_results["main"] = train_main_phase({}, opts.weights)
+    torch.cuda.empty_cache()
+    phase_done("train_main", t0)
+
     s1r = results["stage1_B1_K307200"]["separable"]
     kernels = [{
         "name": "fused_uoms_cross_attention",
@@ -2484,7 +2793,7 @@ def main(argv=None):
         })
     print(json.dumps({"presets_main": preset_results, "grouped_towers": grouped_results,
                       "stream_main": stream_results, "stage1_no_sync": no_sync,
-                      "seed_limits": seed_limits}), flush=True)
+                      "seed_limits": seed_limits, "train": train_results}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

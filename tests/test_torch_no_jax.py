@@ -58,6 +58,11 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {f"unseenobjectswithmeanshift_torch.{m}" for m in (
         "ops.ms_deform_attn", "models.backbone_resnet", "models.pixel_decoders",
         "models.swin")} <= expected
+    # and the training path's, the CLI included
+    assert {f"unseenobjectswithmeanshift_torch.{m}" for m in (
+        "losses.point_sample", "losses.lsap", "losses.matcher", "losses.criterion",
+        "losses.embedding", "train.trainer", "utils.checkpoint_io", "data.synthetic",
+        "data.synthetic_device", "cli.train_msmformer")} <= expected
     assert result["bad"] == []
 
 

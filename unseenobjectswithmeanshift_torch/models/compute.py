@@ -73,6 +73,33 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training mode is flax's ``BatchNorm(momentum=0.9)``
+    (the JAX package's, ``models/resnet.py:52``): normalize with the batch
+    mean and the *biased* variance E[x^2] - E[x]^2 (clamped at 0), computed in
+    at least fp32, and blend that biased variance into the running variance:
+    running = 0.9 running + 0.1 batch. (torch's own training mode blends the
+    unbiased variance.) Eval mode is torch's, on the running statistics.
+    The output has the input's dtype."""
+
+    FLAX_MOMENTUM = 0.9
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(at_least_fp32(x.dtype))
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.FLAX_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
 class GroupNorm(nn.GroupNorm):
     """nn.GroupNorm of the input's dtype, computed in at least fp32 (fp32
     parameters) and cast back to the input's dtype."""

@@ -30,6 +30,11 @@ level's size (bilinear, align_corners=False, :370-374).
 projections (:91-104): the kernel streams the 64-channel map, never a 256-d
 one.
 
+Training takes the unfused path instead (``forward_unfused``, JAX
+:333-351, :409-424): the same parameters, the input projection and level
+embedding applied to the map, the masked cross-attention in plain PyTorch
+(``MeanShiftAttention.masked``: dense, or chunked from 32,768 keys on).
+
 ``dtype`` is the compute dtype (``models/compute.py``), as the JAX
 decoder's (:285-509): the queries, LayerNorms, self-attention, FFN and heads
 run in it, and so does the cross-attention kernel, whose every input
@@ -49,14 +54,16 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused_cross_attention import fused_uoms_cross_attention
 from ..ops.hypersphere_attention import (
+    CHUNKED_ATTENTION_MIN_K, bool_mask_to_bias, chunked_masked_meanshift_attention_twopass,
     l2_normalize, meanshift_attention, merge_heads, split_heads,
 )
 from ..ops.resize import resize_bilinear
 from .compute import LayerNorm, Linear
-from .position_encoding import position_embedding_sine_factors
+from .position_encoding import position_embedding_sine, position_embedding_sine_factors
 
 
 class MeanShiftAttention(nn.Module):
@@ -74,6 +81,20 @@ class MeanShiftAttention(nn.Module):
         out, _ = meanshift_attention(query, key, value, self.in_proj_weight,
                                      self.in_proj_bias, self.out_proj.weight,
                                      self.out_proj.bias, self.num_heads, self.kappa)
+        return out
+
+    def masked(self, query, key, value, keep):
+        """The unfused masked cross-attention (training): keep [B, Q, K]
+        bool, the mask logits' (me . mf >= 0), with the all-masked-row guard;
+        dense below CHUNKED_ATTENTION_MIN_K keys, the chunked two-pass form
+        from there on (JAX decoder.py:166-188)."""
+        args = (self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
+                self.out_proj.bias, self.num_heads)
+        if key.shape[1] >= CHUNKED_ATTENTION_MIN_K:
+            return chunked_masked_meanshift_attention_twopass(
+                query, key, value, *args, keep, kappa=self.kappa)
+        out, _ = meanshift_attention(query, key, value, *args, self.kappa,
+                                     mask_bias=bool_mask_to_bias(~keep))
         return out
 
     def fused_cross(self, query, featT, mfT, me, pos, win, cin, tile_skip=False,
@@ -257,3 +278,78 @@ class MeanShiftDecoder(nn.Module):
             mfT = mask_features.permute(0, 3, 1, 2).reshape(B, Cm, H * W)
             out["pred_masks"] = torch.einsum("bqc,bck->bqk", me, mfT).reshape(B, -1, H, W)
         return out
+
+    def forward_unfused(self, x, mask_features, materialize_masks=False, remat=False):
+        """The unfused path (JAX decoder.py:333-351, :409-424, :466-469,
+        :510-519), the one the JAX package trains: the input projection and
+        the level embedding are applied to the feature map (src), the keys
+        are src + the sine encoding, and each layer's mask logits me . mf
+        (at the next level's size, detached) mask the next cross-attention
+        (``MeanShiftAttention.masked``). The parameters are the fused path's:
+        weights trained here serve fused unchanged, and in eval mode both
+        paths compute the same function. remat: run every attention under
+        ``torch.utils.checkpoint`` (the JAX ``remat``, decoder.py:442).
+
+        Returns pred_logits, mask_embed and aux_outputs (pred_logits and
+        mask_embed of every earlier layer); with materialize_masks also each
+        layer's pred_masks [B, Q, H, W], detached (training scores masks in
+        factored form, mask_embed x mask_features, and never holds the
+        per-layer maps in the autograd graph)."""
+        levels = [x] if isinstance(x, torch.Tensor) else list(x)
+        if len(levels) != self.num_levels:
+            raise ValueError(f"the decoder takes {self.num_levels} feature levels, "
+                             f"got {len(levels)}")
+        B, dt, E, s = levels[0].shape[0], self.dtype, self.E, self.key_stride
+        mask_features = mask_features.to(dt)
+        srcs, keys, sizes = [], [], []
+        for l, xl in enumerate(levels):
+            h, w = xl.shape[1:3]
+            pos = position_embedding_sine(h, w, E // 2, device=xl.device)
+            if s > 1:
+                xl, pos = xl[:, ::s, ::s], pos[::s, ::s]
+            h, w = xl.shape[1:3]
+            sizes.append((h, w))
+            proj = self.input_proj[l]
+            src = F.linear(xl.to(dt), proj.weight[:, :, 0, 0].to(dt), proj.bias.to(dt))
+            src = src.reshape(B, h * w, E) + self.level_embed.weight[l].to(dt)
+            srcs.append(src)
+            keys.append(src + pos.reshape(1, h * w, E).to(dt))
+
+        def heads(output, size):
+            cls, me = self._heads(output)
+            with torch.no_grad():
+                m = torch.einsum("bqc,bhwc->bqhw", me, mask_features)
+                logits = m
+                if s > 1:
+                    logits = m[:, :, ::s, ::s]
+                elif tuple(size) != tuple(m.shape[-2:]):
+                    logits = resize_bilinear(m[..., None], size)[..., 0]
+                keep = logits.reshape(B, logits.shape[1], -1) >= 0
+            return cls, me, m if materialize_masks else None, keep
+
+        def run(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+        output = self.query_feat.weight.to(dt)[None].expand(B, -1, -1)
+        qpos = self.query_embed.weight.to(dt)[None].expand(B, -1, -1)
+        cls, me, m, keep = heads(output, sizes[0])
+        preds = [(cls, me, m)]
+        for i in range(self.L):
+            l = i % self.num_levels
+            ca = self.transformer_cross_attention_layers[i]
+            output = ca.norm(output + run(ca.meanshift_attn.masked, output + qpos, keys[l],
+                                          srcs[l], keep))
+            sa = self.transformer_self_attention_layers[i]
+            qk = output + qpos
+            output = sa.norm(output + run(sa.self_attn, qk, qk, output))
+            output = self.transformer_ffn_layers[i](output)
+            if self.block_norm:
+                output = l2_normalize(output, dim=-1)
+            cls, me, m, keep = heads(output, sizes[(i + 1) % self.num_levels])
+            preds.append((cls, me, m))
+
+        def head(c, e, mk):
+            return {"pred_logits": c, "mask_embed": e, **(
+                {"pred_masks": mk} if materialize_masks else {})}
+
+        return {**head(*preds[-1]), "aux_outputs": [head(*p) for p in preds[:-1]]}

@@ -1,7 +1,8 @@
 """Meta-architectures: backbone -> pixel decoder -> mean-shift decoder.
 
 Port of ``unseenobjectswithmeanshift_tpu.models.meta_arch``: MSMFormer, the
-UCN-backbone arch (light path :65-125, SimplePixelDecoder :34; ref:
+UCN-backbone arch (light path :65-125, the train forward :97-135,
+SimplePixelDecoder :34; ref:
 pretrained_meanshiftformer_model.py:50-497), and StandardMaskFormer, the
 ResNet50 / Swin arch (:146-261), chosen by ``build_model``. The decoder's
 cross-attention runs the CUDA kernel whenever its tensors are on a CUDA
@@ -47,8 +48,8 @@ class SimplePixelDecoder(nn.Module):
 
 def build_decoder(cfg: Config, in_channels: int) -> MeanShiftDecoder:
     d = cfg.decoder
-    # key_stride is an inference option: the port runs inference only
-    # (the JAX package forces 1 in training, meta_arch.py:116)
+    # key_stride is an inference option: a train forward refuses > 1 (the
+    # JAX package forces 1 in training, meta_arch.py:116)
     return MeanShiftDecoder(
         num_classes=d.num_classes, hidden_dim=d.hidden_dim,
         num_queries=d.num_queries, nheads=d.nheads,
@@ -118,21 +119,43 @@ class MSMFormer(nn.Module):
         self.pretrained_backbone = build_segnet(cfg, grouped_towers=False)
         self.sem_seg_head = _SemSegHead(cfg)
 
-    def forward(self, image, xyz=None, light: bool = True):
+    def features(self, image, xyz=None):
+        """(features, mask_features), both NHWC: the SEGNET embedding
+        L2-normalized once more by the meta-arch
+        (pretrained_meanshiftformer_model.py:298) and the pixel decoder's
+        mask features."""
+        t = lambda x: None if x is None else x.permute(0, 3, 1, 2)
+        features = l2_normalize(self.pretrained_backbone.forward_nchw(t(image), t(xyz)), dim=1)
+        mask_features = self.sem_seg_head.pixel_decoder(features)
+        return features.permute(0, 2, 3, 1), mask_features.permute(0, 2, 3, 1)
+
+    def forward(self, image, xyz=None, light: bool = True, train: bool = False):
         """image, xyz: [B, H, W, 3] (normalized BGR, camera XYZ; xyz None for
         COLOR input), H and W padded to the size divisibility. light=True
         returns mask_embed [B, Q, Cm] and mask_features [B, H, W, Cm] instead
-        of the [B, Q, H, W] masks."""
-        t = lambda x: None if x is None else x.permute(0, 3, 1, 2)
-        features = self.pretrained_backbone.forward_nchw(t(image), t(xyz))
-        # the meta-arch re-normalizes (pretrained_meanshiftformer_model.py:298)
-        features = l2_normalize(features, dim=1)
-        mask_features = self.sem_seg_head.pixel_decoder(features)
-        outputs = self.sem_seg_head.predictor(
-            features.permute(0, 2, 3, 1), mask_features.permute(0, 2, 3, 1),
-            materialize_masks=not light)
+        of the [B, Q, H, W] masks.
+
+        train=True is the JAX package's train forward (meta_arch.py:97-135):
+        the decoder's unfused path (``forward_unfused``, every attention
+        under ``torch.utils.checkpoint`` when ``train_remat_attention``), and
+        the outputs add mask_features and backbone_features (the normalized
+        embedding, for the embedding loss); the criterion scores the masks
+        in factored form. BatchNorm follows the module's mode: call
+        ``model.train()`` first for batch statistics."""
+        features, mask_features = self.features(image, xyz)
+        predictor = self.sem_seg_head.predictor
+        if train:
+            if predictor.key_stride != 1:
+                raise ValueError("training runs at decoder.key_stride 1, as the JAX package "
+                                 "forces it (meta_arch.py:116)")
+            outputs = predictor.forward_unfused(features, mask_features,
+                                                remat=self.cfg.train_remat_attention)
+            outputs["mask_features"] = mask_features
+            outputs["backbone_features"] = features
+            return outputs
+        outputs = predictor(features, mask_features, materialize_masks=not light)
         if light:
-            outputs["mask_features"] = mask_features.permute(0, 2, 3, 1)
+            outputs["mask_features"] = mask_features
         return outputs
 
 

@@ -5,7 +5,9 @@ lib/networks/resnet.py:44-270, resnet_dilated.py Resnet34_8s). Output stride 8
 is reached by dilation: once the running stride equals the target, a stage's
 stride 2 becomes dilation x2 (``_plan_stages``). A 1x1 ``fc`` conv projects to
 the embedding width and a bilinear (align_corners=True) upsample restores the
-input size. BatchNorm runs on its running statistics (eval mode, eps 1e-5).
+input size. BatchNorm (eps 1e-5) runs on its running statistics in eval
+mode; in training mode on the batch statistics, updating the running ones as
+the JAX package's flax BatchNorm does (``compute.BatchNorm2d``).
 
 Submodule names follow the reference checkpoint keys
 (``conv1``, ``bn1``, ``layer{1-4}.{b}.{conv1,bn1,conv2,bn2,downsample.{0,1}}``,
@@ -28,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .compute import Conv2d
+from .compute import BatchNorm2d, Conv2d
 
 
 def _plan_stages(layers: Sequence[int], block_expansion: int, output_stride: int):
@@ -62,14 +64,14 @@ class BasicBlock(nn.Module):
         g = groups
         self.conv1 = Conv2d(inplanes * g, planes * g, 3, stride, padding=dilation,
                             dilation=dilation, bias=False, groups=g, compute_dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(planes * g)
+        self.bn1 = BatchNorm2d(planes * g)
         self.conv2 = Conv2d(planes * g, planes * g, 3, 1, padding=dilation,
                             dilation=dilation, bias=False, groups=g, compute_dtype=dtype)
-        self.bn2 = nn.BatchNorm2d(planes * g)
+        self.bn2 = BatchNorm2d(planes * g)
         self.downsample = (nn.Sequential(
             Conv2d(inplanes * g, planes * g, 1, stride, bias=False, groups=g,
                    compute_dtype=dtype),
-            nn.BatchNorm2d(planes * g)) if has_downsample else None)
+            BatchNorm2d(planes * g)) if has_downsample else None)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -89,7 +91,7 @@ class DilatedResNetFCN(nn.Module):
         g = groups
         self.conv1 = Conv2d(in_ch * g, 64 * g, 7, 2, 3, bias=False, groups=g,
                             compute_dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(64 * g)
+        self.bn1 = BatchNorm2d(64 * g)
         cin = 64
         for si, blocks in enumerate(_plan_stages(layers, 1, output_stride)):
             mods = []

@@ -15,6 +15,9 @@ reads a reference ``.pth`` (the published UCN and MSMFormer checkpoints) into
 a state_dict of the port's modules, and ``fuse_tower_state`` fuses a
 two-tower state_dict into the grouped layout (``SEGNET.grouped_towers``).
 
+``to_jax_variables`` goes the other way for the UCN-backbone MSMFormer (a
+state_dict, or gradients by parameter name, to the JAX tree).
+
 Layouts: flax conv [kh, kw, in, out] -> torch [out, in, kh, kw];
 Dense [in, out] -> Linear [out, in]; the q/k/v kernels are packed into
 ``in_proj_weight`` [3E, E]; batch_stats become BatchNorm buffers.
@@ -360,6 +363,99 @@ def _predictor(pr, sd):
     _linear(pr["class_embed"], P + "class_embed", sd)
     for name, leaf in pr["mask_embed"].items():
         _linear(leaf, f"{P}mask_embed.layers.{name.split('_')[1]}", sd)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _conv_back(t):
+    return np.transpose(_np(t), (2, 3, 1, 0))
+
+
+def to_jax_variables(state_dict) -> dict:
+    """The inverse of from_jax_variables for the UCN-backbone MSMFormer: a
+    state_dict of the port's model (reference key names) -> the JAX
+    package's {"params", "batch_stats"} numpy tree. Also takes a dict of
+    gradients under the parameters' names (no buffers): its tree then has
+    no batch_stats. The CPU tests read the port's updated parameters,
+    gradients and running statistics back in the JAX layout with it."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, value):
+        for name in path[:-1]:
+            tree = tree.setdefault(name, {})
+        tree[path[-1]] = value
+
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        if parts[0] == "pretrained_backbone":
+            tower = parts[1]
+            rest = parts[3:]                             # after <tower>.resnet34_8s
+            if rest[0].startswith("layer"):
+                mod = [f"{rest[0]}_{rest[1]}"]
+                leaf = rest[2:]
+                if leaf[0] == "downsample":
+                    leaf = ["downsample_conv" if leaf[1] == "0" else "downsample_bn"] + leaf[2:]
+            else:
+                mod, leaf = [], rest
+            path = ["pretrained_backbone", tower] + mod + [leaf[0]]
+            what = leaf[-1]
+            if what in ("running_mean", "running_var"):
+                put(stats, path + ["mean" if what == "running_mean" else "var"], _np(t))
+            elif what == "weight" and t.dim() == 4:
+                put(params, path + ["kernel"], _conv_back(t))
+            elif what == "weight":
+                put(params, path + ["scale"], _np(t))
+            elif what == "bias":
+                put(params, path + ["bias"], _np(t))
+        elif key.startswith("sem_seg_head.pixel_decoder.mask_features."):
+            put(params, ["pixel_decoder", "mask_features",
+                         "kernel" if parts[-1] == "weight" else "bias"],
+                _conv_back(t) if parts[-1] == "weight" else _np(t))
+        elif key.startswith("sem_seg_head.predictor."):
+            _predictor_back(parts[2:], t, lambda path, v: put(params, ["predictor"] + path, v))
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def _predictor_back(parts, t, put):
+    """One ``sem_seg_head.predictor.*`` leaf into the JAX decoder tree."""
+    name, what = parts[0], parts[-1]
+    if name in ("query_feat", "query_embed", "level_embed"):
+        put([name], _np(t))
+    elif name == "input_proj":
+        put([f"input_proj_{parts[1]}", "kernel" if what == "weight" else "bias"],
+            _conv_back(t) if what == "weight" else _np(t))
+    elif name in ("decoder_norm", "class_embed"):
+        kind = "scale" if name == "decoder_norm" and what == "weight" else (
+            "kernel" if what == "weight" else "bias")
+        put([name, kind], _np(t).T if kind == "kernel" else _np(t))
+    elif name == "mask_embed":
+        put(["mask_embed", f"layers_{parts[2]}", "kernel" if what == "weight" else "bias"],
+            _np(t).T if what == "weight" else _np(t))
+    elif name == "transformer_ffn_layers":
+        i, sub = parts[1], parts[2]
+        if sub == "norm":
+            put([f"ffn_norm_{i}", "scale" if what == "weight" else "bias"], _np(t))
+        else:
+            put([f"ffn_{'lin1' if sub == 'linear1' else 'lin2'}_{i}",
+                 "kernel" if what == "weight" else "bias"],
+                _np(t).T if what == "weight" else _np(t))
+    else:                                                # cross / self attention layers
+        kind = "cross" if "cross" in name else "self"
+        i, sub = parts[1], parts[2]
+        if sub == "norm":
+            put([f"{kind}_norm_{i}", "scale" if what == "weight" else "bias"], _np(t))
+        elif parts[3] == "out_proj":
+            put([f"{kind}_attn_{i}", "out_kernel" if what == "weight" else "out_bias"],
+                _np(t).T if what == "weight" else _np(t))
+        else:
+            for x, chunk in zip("qkv", t.chunk(3)):
+                if what == "in_proj_weight":
+                    put([f"{kind}_attn_{i}", f"{x}_kernel"], _np(chunk).T)
+                else:
+                    put([f"{kind}_attn_{i}", f"{x}_bias"], _np(chunk))
 
 
 @torch.no_grad()
