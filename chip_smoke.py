@@ -164,6 +164,39 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             finds no instance in it). With --weights,
             8 fine-tuning steps from them, beside the release's logged
             losses (no gate).
+25. eval_check  the evaluation path's host code, with cv2 and PIL made
+            unimportable for phases 25-27 (the card machine may have them):
+            the native host library built by g++ from the port's
+            source (its seconds); every PNG colour type and bit depth through
+            the port's encoder with each row filter forced, decoded by both
+            backends to the written samples; ascii, binary and
+            binary_compressed PCD clouds at 480x640 with NaN read back in
+            both backends (native LZF equal to the Python LZF and to the
+            written bytes); multilabel_metrics native equal to numpy on 16
+            seeded 480x640 label pairs (an empty prediction, an empty ground
+            truth, tied overlaps), ms an image of each.
+26. eval_main  an OCID-layout tree of 16 frames ('table' and floor
+            sequences, paletted labels with table id 1 and floor id 2,
+            binary_compressed clouds) and an OSD-layout tree of 8, written
+            from scenes the port renders on the card (scene_style "ocid");
+            every sample the readers return equal to the frame written;
+            cli.test_net.evaluate at B=4 on decisive_predictor in fp32
+            (OCID, and OSD over 7 frames: a short last batch) and bf16, and
+            on the decisive UCN predictor (14 frames): 6 + 6 cross-attention
+            launches a batch (bf16: 6 + 6 bf16), 1 + 1 FPS and connected
+            components launches a UCN batch (stage 2 only where crops are
+            present, at least one such batch), the labels scored equal to
+            pred(image, xyz) on each batch (torch.equal); the metric block,
+            img/s with and without the host metrics, the host's ms an image.
+            Then cli.test_net.main through its argv on the OCID tree (random
+            weights; with --weights also the release paired with itself; no
+            quality gate).
+27. train_eval  cli.train_msmformer at 480x640, B=4, 4 steps with
+            --eval-period 2 --eval-samples 8: two finite eval records; then
+            its evaluate_scenes on decisive_predictor's whole-image network
+            over the same 8 held-out scenes, equal to the serving path's
+            stage-1 labels of each scene scored by multilabel_metrics, with
+            at least one object detected.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure ends the run with a
@@ -182,6 +215,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -2488,11 +2522,514 @@ def train_main_phase(results, weights=None):
     return results
 
 
+# Dataset evaluation (cli/test_net.py). The card machine has neither cv2 nor
+# PIL: the port decodes PNG and PCD itself (utils/image_io.py, data/pcd.py)
+# and scores on the host with its native library (native/uoms_native.cpp,
+# built by g++). eval_check holds the native decoders and counts to their
+# numpy twins; eval_main writes OCID- and OSD-layout
+# trees of scenes the port renders on the card, reads them back through the
+# readers and evaluates them through cli.test_net; train_eval trains with
+# --eval-period. The host library is no GPU kernel: it has no kernels entry.
+EVAL_HW = (480, 640)
+OCID_FRAMES, OSD_FRAMES, EVAL_BATCH = 16, 8, 4
+EVAL_DEVICE = "cuda"
+CARD = "card not read yet"          # the nvidia-smi line, set by main
+
+
+def png_roundtrip_check():
+    """Every colour type and bit depth through the port's encoder with each
+    row filter forced, decoded by both backends: the samples must come back
+    as written. -> number of files."""
+    from unseenobjectswithmeanshift_torch.utils.image_io import decode_png, encode_png
+
+    rng = np.random.RandomState(0)
+    files = []
+    for depth, dt, top in ((8, np.uint8, 255), (16, np.uint16, 65535)):
+        for c in (1, 2, 3, 4):                          # colour types 0, 4, 2, 6
+            s = (rng.rand(48, 64, c) * top).astype(dt)
+            files += [(s, None, f) for f in range(5)]
+    idx = rng.randint(0, 200, (48, 64)).astype(np.uint8)
+    pal = (rng.rand(200, 3) * 255).astype(np.uint8)
+    files += [(idx[..., None], pal, f) for f in range(5)]  # colour type 3
+    for s, palette, f in files:
+        data = encode_png(s if palette is None else s[..., 0], palette=palette, filters=f)
+        for backend in ("native", "numpy"):
+            png = decode_png(data, backend)
+            if not np.array_equal(png.samples, s) or png.samples.dtype != s.dtype:
+                raise AssertionError(f"PNG round trip differs: {s.dtype} {s.shape[-1]} "
+                                     f"channels, filter {f}, {backend}")
+    return len(files)
+
+
+def pcd_check(d):
+    """ascii, binary and binary_compressed clouds at 480x640 with NaN holes:
+    read_pcd_xyz in both backends equal to what was written (NaN -> 0), and
+    the native LZF equal to the Python LZF and to the written field bytes.
+    -> {kind: {backend: ms}}."""
+    from unseenobjectswithmeanshift_torch import native
+    from unseenobjectswithmeanshift_torch.data import pcd
+
+    rng = np.random.RandomState(1)
+    h, w = EVAL_HW
+    xyz = rng.randn(h, w, 3).astype(np.float32)
+    xyz[rng.rand(h, w) < 0.05] = np.nan
+    want = np.nan_to_num(xyz.reshape(-1, 3))
+    out = {}
+    for kind in ("ascii", "binary", "binary_compressed"):
+        path = os.path.join(d, f"{kind}.pcd")
+        pcd.write_pcd_xyz(path, xyz, kind=kind)
+        out[kind] = {}
+        for backend in ("native", "numpy"):
+            t0 = time.perf_counter()
+            got = pcd.read_pcd_xyz(path, backend)
+            out[kind][backend] = (time.perf_counter() - t0) * 1e3
+            if got.dtype != np.float32 or not np.array_equal(got, want):
+                raise AssertionError(f"read_pcd_xyz({kind}, {backend}) differs from the cloud")
+    raw = b"".join([np.ascontiguousarray(xyz.reshape(-1, 3)[:, i]).tobytes() for i in range(3)]
+                   + [np.zeros(h * w, np.uint32).tobytes()])
+    comp = pcd.lzf_literal(raw)
+    if not native.lzf_decompress(comp, len(raw)) == pcd._lzf_decompress(comp, len(raw)) == raw:
+        raise AssertionError("native LZF, Python LZF and the written bytes differ")
+    return out
+
+
+def eval_label_pairs(n=16, seed=0):
+    """n seeded 480x640 (prediction, ground truth) label pairs of discs and
+    boxes: pair 0 has an empty prediction, pair 1 an empty ground truth, pair
+    2 tied overlaps (each object split in two equal halves by two predicted
+    labels); the rest 3-20 objects a side, prediction ids up to 60."""
+    rng = np.random.RandomState(seed)
+    h, w = EVAL_HW
+    ys, xs = np.mgrid[:h, :w]
+
+    def scene(k, top):
+        lab = np.zeros((h, w), np.int32)
+        for _ in range(k):
+            cy, cx, r = rng.randint(0, h), rng.randint(0, w), rng.randint(8, 80)
+            shape = ((ys - cy) ** 2 + (xs - cx) ** 2 <= r * r) if rng.rand() < 0.5 else (
+                (abs(ys - cy) <= r) & (abs(xs - cx) <= rng.randint(8, 80)))
+            lab[shape] = rng.randint(1, top + 1)
+        return lab
+
+    pairs = [(np.zeros((h, w), np.int32), scene(8, 8)), (scene(8, 8), np.zeros((h, w), np.int32))]
+    gt = np.zeros((h, w), np.int32)
+    gt[100:200, 100:300], gt[250:350, 300:500] = 1, 2
+    tied = gt * 0
+    tied[100:200, 100:200], tied[100:200, 200:300] = 3, 4
+    tied[250:350, 300:400], tied[250:350, 400:500] = 5, 6
+    pairs.append((tied, gt))
+    while len(pairs) < n:
+        pairs.append((scene(rng.randint(3, 21), 60), scene(rng.randint(3, 21), 20)))
+    return pairs
+
+
+def metrics_equal(a, b):
+    """Two metric dicts equal value for value, NaN equal to NaN (a label
+    filling the image has no boundary: the reference divides 0 by 0)."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (a[k] != a[k] and b[k] != b[k]) for k in a)
+
+
+@contextlib.contextmanager
+def without_cv2_or_pil():
+    """Inside the block `import cv2` and `import PIL` raise ImportError,
+    whether or not this machine has them installed: what runs there needs
+    neither. Refuses to start if either is imported already."""
+    loaded = [m for m in ("cv2", "PIL") if sys.modules.get(m) is not None]
+    if loaded:
+        raise AssertionError(f"{loaded} imported before the evaluation phases")
+    saved = {m: sys.modules.pop(m, None) for m in ("cv2", "PIL")}
+    sys.modules.update({m: None for m in saved})
+    try:
+        yield
+    finally:
+        for m in saved:
+            del sys.modules[m]
+
+
+def eval_check_phase():
+    """25. the readers' decoders and the scoring backends, with cv2 and PIL
+    unimportable."""
+    import importlib.util
+    import tempfile
+
+    from unseenobjectswithmeanshift_torch import native
+    from unseenobjectswithmeanshift_torch.utils.evaluation import multilabel_metrics
+
+    installed = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "PIL")}
+    sync_print(f"eval_check: installed on this machine: {installed}; the evaluation phases "
+               "run with both made unimportable")
+    t0 = time.perf_counter()
+    lib = native.build()
+    res = {"native_build_s": native.build_seconds, "native_library": os.path.basename(lib)}
+    sync_print(f"eval_check: native host library {os.path.basename(lib)} built by g++ in "
+               f"{native.build_seconds if native.build_seconds is not None else 0.0:.2f} s "
+               f"(None: reused) ({time.perf_counter() - t0:.2f} s with the check)")
+    res["png_files"] = png_roundtrip_check()
+    sync_print(f"eval_check: PNG round trip of {res['png_files']} files (colour types 0, 2, "
+               "3, 4, 6; 8 and 16 bits; filters 0-4 forced) equal in both backends")
+    with tempfile.TemporaryDirectory() as d:
+        res["pcd_read_ms"] = pcd_check(d)
+    sync_print(f"eval_check: PCD ascii / binary / binary_compressed at {EVAL_HW[0]}x{EVAL_HW[1]} "
+               f"with NaN equal "
+               f"to the cloud in both backends; read ms {res['pcd_read_ms']}")
+    pairs = eval_label_pairs()
+    ms = {"native": [], "numpy": []}
+    for i, (pred, gt) in enumerate(pairs):
+        got = {}
+        for backend in ("native", "numpy"):
+            t = time.perf_counter()
+            got[backend] = multilabel_metrics(pred, gt, backend=backend)
+            ms[backend].append((time.perf_counter() - t) * 1e3)
+        if not metrics_equal(got["native"], got["numpy"]):
+            raise AssertionError(f"label pair {i}: native metrics {got['native']} differ from "
+                                 f"numpy {got['numpy']}")
+    assert pairs[0][0].max() == 0 and pairs[1][1].max() == 0
+    res["metric_ms_per_image"] = {b: statistics.median(v) for b, v in ms.items()}
+    res["metric_ms_per_image_max"] = {b: max(v) for b, v in ms.items()}
+    sync_print(f"eval_check: multilabel_metrics native == numpy on {len(pairs)} "
+               f"{EVAL_HW[0]}x{EVAL_HW[1]} pairs "
+               f"(empty prediction, empty ground truth, tied overlaps); ms an image, median "
+               f"(max): native {res['metric_ms_per_image']['native']:.2f} "
+               f"({res['metric_ms_per_image_max']['native']:.2f}), numpy "
+               f"{res['metric_ms_per_image']['numpy']:.2f} "
+               f"({res['metric_ms_per_image_max']['numpy']:.2f}) [{CARD}; host CPU]")
+    return res
+
+
+def render_eval_frames(n, seed=0):
+    """n OCID-style scenes rendered on the card by the port's renderer
+    (data/synthetic_device.py, scene_style "ocid", test split) with the depth
+    dropout of its augmentation: (bgr uint8 [n, H, W, 3], label [n, H, W]
+    int32 objects 1.. and 0 elsewhere, table [n, H, W] bool: the plane's
+    pixels, xyz float32 [n, H, W, 3] with NaN where the depth is missing),
+    host numpy."""
+    from unseenobjectswithmeanshift_torch.data.synthetic_device import (
+        augment_depth, render_scene_batch,
+    )
+
+    h, w = EVAL_HW
+    loader = SyntheticDeviceLoader(n, h, w, image_set="test", seed=seed, scene_style="ocid",
+                                   device=EVAL_DEVICE)
+    i = loader.intr
+    fx, fy, px, py = (float(i[k]) for k in ("fx", "fy", "x_offset", "y_offset"))
+    rgb, depth, label = render_scene_batch(loader.params_for(range(n)), h, w, fx, fy, px, py)
+    table = (label == 0) & (depth > 0)
+    depth = augment_depth(depth, torch.Generator(device=EVAL_DEVICE).manual_seed(seed))
+    rows = torch.arange(h, dtype=torch.float32, device=EVAL_DEVICE)[:, None]
+    cols = torch.arange(w, dtype=torch.float32, device=EVAL_DEVICE)[None, :]
+    xyz = torch.stack([(cols - px) * depth / fx, (rows - py) * depth / fy, depth], -1)
+    xyz = torch.where((depth > 0)[..., None], xyz, float("nan"))
+    bgr = (rgb.flip(-1) * 255).round().clamp(0, 255).to(torch.uint8)
+    return (bgr.cpu().numpy(), label.cpu().numpy().astype(np.int32), table.cpu().numpy(),
+            xyz.cpu().numpy())
+
+
+def write_eval_trees(d, seed=0):
+    """An OCID-layout tree of OCID_FRAMES frames (half in a 'table' sequence
+    with floor id 2, half in a floor sequence; rgb/*.png, paletted
+    label/*.png with table id 1, pcd/*.pcd binary_compressed) and an
+    OSD-layout tree of OSD_FRAMES (image_color/, paletted annotation/,
+    pcd/ binary), every PNG with the row filters cycling 0-4. -> (ocid
+    root, osd root, {file_name: (bgr, expected label, xyz)})."""
+    from unseenobjectswithmeanshift_torch.data.datasets import remap_labels
+    from unseenobjectswithmeanshift_torch.data.pcd import write_pcd_xyz
+    from unseenobjectswithmeanshift_torch.utils.image_io import write_png
+
+    bgr, label, table, xyz = render_eval_frames(OCID_FRAMES + OSD_FRAMES, seed)
+    filters = [r % 5 for r in range(EVAL_HW[0])]
+    palette = (np.arange(256 * 3) * 37 % 256).astype(np.uint8)
+    ocid, osd = os.path.join(d, "OCID"), os.path.join(d, "OSD")
+    written = {}
+    for k in range(OCID_FRAMES + OSD_FRAMES):
+        if k < OCID_FRAMES:
+            on_table = k < OCID_FRAMES // 2
+            seq = os.path.join(ocid, "ARID20", "table", "top", "seq01") if on_table else \
+                os.path.join(ocid, "ARID10", "floor", "bottom", "seq02")
+            dirs = {s: os.path.join(seq, s) for s in ("rgb", "label", "pcd")}
+            first = 3 if on_table else 2              # table 1 (and floor 2) below the objects
+            png = np.where(label[k] > 0, label[k] + first - 1,
+                           np.where(table[k], 1, 2 if on_table else 0))
+            name = f"result_2018-08-20-10-{k:02d}"
+            kind = "binary_compressed"
+        else:
+            dirs = {"rgb": os.path.join(osd, "image_color"),
+                    "label": os.path.join(osd, "annotation"), "pcd": os.path.join(osd, "pcd")}
+            png = label[k]
+            name = f"learn{k - OCID_FRAMES}"
+            kind = "binary"
+        for p in dirs.values():
+            os.makedirs(p, exist_ok=True)
+        path = os.path.join(dirs["rgb"], name + ".png")
+        write_png(path, bgr[k][..., ::-1], filters=filters)          # RGB in the file
+        write_png(os.path.join(dirs["label"], name + ".png"), png.astype(np.uint8),
+                  palette=palette, filters=filters)
+        write_pcd_xyz(os.path.join(dirs["pcd"], name + ".pcd"), xyz[k], kind=kind)
+        written[path] = (bgr[k], remap_labels(label[k]), xyz[k])
+    return ocid, osd, written
+
+
+def check_reads(dataset, written):
+    """Every sample the reader returns equals what was written: the image
+    normalized from the written BGR, the cloud (NaN -> 0), the labels of
+    the rendered objects after the reader's table / floor removal."""
+    from unseenobjectswithmeanshift_torch.data.datasets import normalize_bgr
+
+    for i in range(len(dataset)):
+        s = dataset[i]
+        bgr, label, xyz = written[s["file_name"]]
+        if not (np.array_equal(s["image"], normalize_bgr(bgr))
+                and np.array_equal(s["xyz"], np.nan_to_num(xyz))
+                and np.array_equal(s["label"], label)):
+            raise AssertionError(f"{s['file_name']}: the reader's sample differs from the frame")
+    return len(dataset)
+
+
+class StageSpy:
+    """Wraps a predictor's stage1 and refine (instance attributes, which
+    stream and __call__ look up) and records, per call, the kernel launches
+    it made (host-side counts: no sync is added) and the crops present
+    (refine)."""
+
+    def __init__(self, pred):
+        self.pred, self.calls = pred, []
+
+    def __enter__(self):
+        for name in ("stage1", "refine"):
+            orig = getattr(self.pred, name)
+
+            def wrapped(*a, _orig=orig, _name=name, **kw):
+                before = kernel_counts()
+                bf = fused_uoms_cross_attention.bf16_launches
+                if _name == "refine":
+                    crops = int(sum(int(c.present.sum()) for c in a[0].crops))
+                out = _orig(*a, **kw)
+                delta = {k: v - before[k] for k, v in kernel_counts().items()}
+                delta["bf16"] = fused_uoms_cross_attention.bf16_launches - bf
+                self.calls.append((_name, delta, crops if _name == "refine" else None))
+                return out
+            setattr(self.pred, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        del self.pred.stage1, self.pred.refine
+
+    def gate(self, tag, stage1, stage2):
+        """stage1 / stage2: {counter: launches a call}; stage 2 launches only
+        where crops are present. -> (batches, batches with crops)."""
+        s1 = [d for n, d, _ in self.calls if n == "stage1"]
+        s2 = [(d, c) for n, d, c in self.calls if n == "refine"]
+        for d in s1:
+            for k, v in stage1.items():
+                assert d[k] == v, f"{tag}: stage 1 made {d[k]} {k} launches, expected {v}"
+        for d, c in s2:
+            for k, v in stage2.items():
+                assert d[k] == (v if c else 0), (
+                    f"{tag}: stage 2 with {c} crops made {d[k]} {k} launches, expected "
+                    f"{v if c else 0}")
+        with_crops = sum(1 for _, c in s2 if c)
+        assert len(s1) == len(s2) and with_crops >= 1, f"{tag}: no batch with crops"
+        return len(s1), with_crops
+
+
+def labels_equal_pred(tag, pred, dataset, result, limit, **kw):
+    """The labels evaluate scored equal pred(image, xyz) on each batch it
+    ran (the short last batch padded as evaluate pads it), torch.equal."""
+    from unseenobjectswithmeanshift_torch.data.loader import pad_hw
+
+    n = limit or len(dataset)
+    for start in range(0, n, EVAL_BATCH):
+        samples = [dataset[i] for i in range(start, min(start + EVAL_BATCH, n))]
+        count = len(samples)
+        samples += [samples[-1]] * (EVAL_BATCH - count)
+        img = torch.from_numpy(np.stack([pad_hw(s["image"]) for s in samples])).to(EVAL_DEVICE)
+        xyz = torch.from_numpy(np.stack([pad_hw(s["xyz"]) for s in samples])).to(EVAL_DEVICE)
+        labels, refined = pred(img, xyz, **kw)
+        for j in range(count):
+            for got, want in ((result["labels"], labels), (result["refined"], refined)):
+                if not torch.equal(torch.from_numpy(got[start + j]).to(want.device), want[j]):
+                    raise AssertionError(f"{tag}: image {start + j}'s scored labels differ "
+                                         "from the predictor's on its batch")
+
+
+def eval_run(tag, pred, dataset, stage1, stage2, limit=0, osd=False, thr=None):
+    """evaluate() on the card with the launches counted per stage and gated
+    and the scored labels held to the predictor's; then two timed passes,
+    with and without the host metrics. -> result line."""
+    from unseenobjectswithmeanshift_torch.cli.test_net import evaluate
+    from unseenobjectswithmeanshift_torch.utils.evaluation import (
+        aggregate_metrics, format_metrics,
+    )
+
+    run = lambda **kw: evaluate(pred, dataset, batch=EVAL_BATCH, osd=osd, ucn_threshold=thr,
+                                limit=limit, log=lambda s: None, **kw)
+    zero_counts()
+    with StageSpy(pred) as spy:
+        result = run()
+    launches = kernel_counts()
+    launches["bf16"] = fused_uoms_cross_attention.bf16_launches
+    _, with_crops = spy.gate(tag, stage1, stage2)
+    kw = {"depth_threshold": thr} if thr is not None else {"osd": osd}
+    labels_equal_pred(tag, pred, dataset, result, limit, **kw)
+    t = run(keep_labels=False)["timing"]
+    card = run(score=False, keep_labels=False)["timing"]
+    line = {"images": t["images"], "batches": result["batches"], "batches_with_crops": with_crops,
+            "launches": launches, "img_per_s": t["img_per_s"],
+            "img_per_s_without_host_metrics": card["img_per_s"],
+            "host_metric_ms_per_image": t["metric_ms_per_image"],
+            "read_ms_per_image": t["read_ms_per_image"], "read_wait_s": t["read_wait_s"],
+            "metric_wait_s": t["metric_wait_s"],
+            "metrics": aggregate_metrics(result["metrics"]),
+            "metrics_refined": aggregate_metrics(result["metrics_refined"])}
+    sync_print(f"eval_main {tag}: {t['images']} images in batches {result['batches']} "
+               f"({with_crops} with crops), launches {launches}; {t['img_per_s']:.2f} img/s "
+               f"with host metrics, {card['img_per_s']:.2f} without; host metrics "
+               f"{t['metric_ms_per_image']:.1f} ms an image (native, on the scoring thread), "
+               f"read {t['read_ms_per_image']:.1f} ms an image on the reader thread (without "
+               f"metrics {card['read_ms_per_image']:.1f}), the card's thread waited "
+               f"{t['read_wait_s']:.3f} s for reads and {t['metric_wait_s']:.3f} s for the "
+               f"scoring after the last batch [{CARD}]")
+    print(format_metrics(line["metrics"]))
+    print("=" * 20 + " Refined " + "=" * 27)
+    print(format_metrics(line["metrics_refined"]), flush=True)
+    return line
+
+
+def eval_main_phase(results, weights=None):
+    """26. OCID / OSD trees written from scenes rendered on the card, read
+    back through the port's readers and evaluated through cli.test_net:
+    MSMFormer fp32 and bf16, UCN, then test_net.main through its argv."""
+    import tempfile
+
+    from unseenobjectswithmeanshift_torch.cli import test_net
+    from unseenobjectswithmeanshift_torch.data.datasets import get_dataset
+
+    d = tempfile.mkdtemp(prefix="uoms_eval_")
+    while "rgb" in d or "table" in d:      # the OCID reader replaces / tests these words
+        os.rmdir(d)
+        d = tempfile.mkdtemp(prefix="uoms_eval_")
+    try:
+        t0 = time.perf_counter()
+        ocid_root, osd_root, written = write_eval_trees(d)
+        ocid, osd = get_dataset("ocid_object", ocid_root), get_dataset("osd_object", osd_root)
+        results["written_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = check_reads(ocid, written) + check_reads(osd, written)
+        results["read_back_s"] = time.perf_counter() - t0
+        assert len(ocid) == OCID_FRAMES and len(osd) == OSD_FRAMES
+        sync_print(f"eval_main: {OCID_FRAMES} OCID + {OSD_FRAMES} OSD frames rendered and "
+                   f"written in {results['written_s']:.1f} s; all {n} samples read back equal "
+                   f"to the frames in {results['read_back_s']:.1f} s")
+        xattn = {"fused_uoms_cross_attention": 6}
+        pred = decisive_predictor(seed=0, device=EVAL_DEVICE)
+        results["msmformer_ocid"] = eval_run("msmformer fp32 OCID", pred, ocid, xattn, xattn)
+        results["msmformer_osd"] = eval_run("msmformer fp32 OSD (limit 7)", pred, osd, xattn,
+                                            xattn, limit=OSD_FRAMES - 1, osd=True)
+        del pred
+        pred16 = decisive_predictor(seed=0, bf16=True, device=EVAL_DEVICE)
+        x16 = {"fused_uoms_cross_attention": 6, "bf16": 6}
+        results["msmformer_bf16_ocid"] = eval_run("msmformer bf16 OCID", pred16, ocid, x16, x16)
+        del pred16
+        torch.cuda.empty_cache()
+        s = ocid[0]
+        image = torch.from_numpy(s["image"][None]).to(EVAL_DEVICE)
+        xyz = torch.from_numpy(s["xyz"][None]).to(EVAL_DEVICE)
+        ucn = decisive_ucn_predictor(image, xyz, seed=0, device=EVAL_DEVICE)
+        ms = {"fps_seeds": 1, "connected_components": 1}
+        results["ucn_ocid"] = eval_run("ucn OCID (limit 14)", ucn, ocid, ms, ms,
+                                       limit=OCID_FRAMES - 2,
+                                       thr=ucn.cfg.test.depth_filter_threshold_ocid)
+        del ucn
+        torch.cuda.empty_cache()
+        for tag, argv in (("random weights", []),
+                          ("r5, paired with itself", ["--checkpoint", weights,
+                                                      "--checkpoint-crop", weights])):
+            if argv and not weights:
+                continue
+            t0 = time.perf_counter()
+            sync_print(f"eval_main test_net.main ({tag}) on the OCID tree [{CARD}]:")
+            r = test_net.main(["--dataset", "ocid_object", "--root", ocid_root,
+                               "--device", EVAL_DEVICE] + argv)
+            results[f"test_net_main_{'r5' if argv else 'random'}"] = {
+                "img_per_s": r["timing"]["img_per_s"], "seconds": time.perf_counter() - t0}
+    finally:
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    return results
+
+
+def train_eval_scoring(args, pred):
+    """The scoring of --eval-period on a network that finds instances (four
+    training steps leave the network finding none, and the metric then
+    returns its constants): train_msmformer.evaluate_scenes on the held-out
+    scenes of the parsed train_msmformer flags ``args`` with the whole-image
+    network of ``pred`` (a decisive_predictor), held equal to the serving
+    path's stage-1 labels of each scene (pred(image, xyz, refine=False))
+    scored by multilabel_metrics and averaged; at least one object
+    detected. -> the averaged metrics."""
+    from unseenobjectswithmeanshift_torch.cli import train_msmformer
+    from unseenobjectswithmeanshift_torch.utils.evaluation import (
+        aggregate_metrics, multilabel_metrics,
+    )
+
+    scenes = train_msmformer.eval_scenes(args, pred.cfg, train_msmformer.image_hw(args))
+    want = []
+    for image, xyz, label in scenes:            # before evaluate_scenes: it ends in train()
+        labels, _ = pred(image, xyz, refine=False)
+        want.append(multilabel_metrics(labels[0].cpu().numpy(), label))
+    want = aggregate_metrics(want)
+    got = train_msmformer.evaluate_scenes(pred.model, pred.cfg, scenes)
+    if not metrics_equal(got, want):
+        raise AssertionError(f"train_eval: evaluate_scenes {got} differs from the serving "
+                             f"path's labels scored {want}")
+    assert got["obj_detected"] > 0, f"train_eval: the decisive network detected nothing: {got}"
+    return got
+
+
+def train_eval_phase():
+    """27. cli.train_msmformer at 480x640, B=4, 4 steps with --eval-period 2
+    --eval-samples 8: two finite eval records beside the train records; then
+    the same scoring on a decisive network (train_eval_scoring)."""
+    import tempfile
+
+    from unseenobjectswithmeanshift_torch.cli import train_msmformer
+
+    argv = ["--iters", "4", "--batch", "4", "--eval-period", "2", "--eval-samples", "8",
+            "--log-period", "1", "--checkpoint-period", "1000", "--fresh",
+            "--device", EVAL_DEVICE]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        train_msmformer.main(["--output", d] + argv)
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    evals = [r for r in records if r["kind"] == "eval"]
+    trains = [r for r in records if r["kind"] == "train"]
+    sync_print(f"train_eval: {len(trains)} train and {len(evals)} eval records in "
+               f"{time.perf_counter() - t0:.1f} s [{CARD}]; eval Objects / Boundary F: "
+               + ", ".join(f"iter {r['iter']}: {r['Objects F-measure']:.4f} / "
+                           f"{r['Boundary F-measure']:.4f}" for r in evals))
+    assert [r["iter"] for r in evals] == [2, 4] and len(trains) == 4
+    for r in evals:
+        bad = [k for k, v in r.items() if k != "kind" and not math.isfinite(v)]
+        assert not bad, f"eval record at iter {r['iter']} has non-finite {bad}"
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decisive = train_eval_scoring(train_msmformer.parse_args(["--output", "unused"] + argv),
+                                  decisive_predictor(seed=0, device=EVAL_DEVICE))
+    sync_print(f"train_eval: evaluate_scenes on decisive_predictor's network equal to the "
+               f"serving path's stage-1 labels scored, {decisive['obj_detected']:.2f} objects "
+               f"detected a scene of {decisive['obj_gt']:.2f}; Objects / Boundary F "
+               f"{decisive['Objects F-measure']:.4f} / {decisive['Boundary F-measure']:.4f} "
+               f"({time.perf_counter() - t0:.1f} s) [{CARD}]")
+    return {"evals": evals, "seconds": seconds, "decisive": decisive}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     p.add_argument("--weights", help="a .npz export of one MSMFormer release "
                    "(scripts/export_release_npz.py): tile_skip_main and bf16_main run on it "
-                   "too, and train_main fine-tunes it")
+                   "too, train_main fine-tunes it and eval_main evaluates it")
     opts = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2505,6 +3042,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -2658,14 +3197,33 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_done("train_main", t0)
 
+    # 25-27. dataset evaluation
+    with without_cv2_or_pil():
+        t0 = time.perf_counter()
+        eval_results = {"check": eval_check_phase()}
+        phase_done("eval_check", t0)
+        t0 = time.perf_counter()
+        eval_results["main"] = eval_main_phase({}, opts.weights)
+        torch.cuda.empty_cache()
+        phase_done("eval_main", t0)
+        t0 = time.perf_counter()
+        eval_results["train_eval"] = train_eval_phase()
+        torch.cuda.empty_cache()
+        phase_done("train_eval", t0)
+    ev = eval_results["main"]
+    eval_fp32 = sum(ev[k]["launches"]["fused_uoms_cross_attention"]
+                    for k in ("msmformer_ocid", "msmformer_osd"))
+    eval_ucn = ev["ucn_ocid"]["launches"]
+
     s1r = results["stage1_B1_K307200"]["separable"]
     kernels = [{
         "name": "fused_uoms_cross_attention",
         "route": "cuda",
         "source": "unseenobjectswithmeanshift_torch/csrc/fused_cross_attention.cu",
         "replaces": "unseenobjectswithmeanshift_tpu/ops/fused_cross_attention.py:334",
-        "launches": launches + r50_launches,
-        "launches_by_path": {"main": launches, "r50_main": r50_launches},
+        "launches": launches + r50_launches + eval_fp32,
+        "launches_by_path": {"main": launches, "r50_main": r50_launches,
+                             "eval_main": eval_fp32},
         "max_abs_err": max([x["max_abs_err"] for r in results.values() for x in r.values()]
                            + [r["max_abs_err"] for r in r50_results.values()]),
         "ms": s1r["ms"], "plain_ms": s1r["plain_ms"], "bound_ms": s1r["bound_ms"],
@@ -2693,8 +3251,9 @@ def main(argv=None):
                       + ("fps_seeds.cu" if name == "fps_seeds" else "mean_shift_climb.cu"),
             "design": design,
             "replaces": f"unseenobjectswithmeanshift_tpu/ops/pallas_mean_shift.py:{line}",
-            "launches": sum(p[name] for p in ucn_launches.values()),
-            "launches_by_path": {p: v[name] for p, v in ucn_launches.items()},
+            "launches": sum(p[name] for p in ucn_launches.values()) + eval_ucn[name],
+            "launches_by_path": {**{p: v[name] for p, v in ucn_launches.items()},
+                                 "eval_main": eval_ucn[name]},
             "max_abs_err": max(r[err_key] for r in ucn_results.values()),
             "max_abs_err_of": ("gap to the fp64 argmax of the running minimum distance"
                                if name == "fps_seeds" else
@@ -2717,8 +3276,10 @@ def main(argv=None):
         "source": "unseenobjectswithmeanshift_torch/csrc/connected_components.cu",
         "replaces": "none: no TPU kernel (the JAX package runs this sweep in XLA, "
                     "unseenobjectswithmeanshift_tpu/ops/mean_shift.py:81)",
-        "launches": sum(p["connected_components"] for p in ucn_launches.values()),
-        "launches_by_path": {p: v["connected_components"] for p, v in ucn_launches.items()},
+        "launches": (sum(p["connected_components"] for p in ucn_launches.values())
+                     + eval_ucn["connected_components"]),
+        "launches_by_path": {**{p: v["connected_components"] for p, v in ucn_launches.items()},
+                             "eval_main": eval_ucn["connected_components"]},
         "max_abs_err": 0 if cc_results["equal"] else None,
         "max_abs_err_of": f"labels equal to the numpy sweep on {cc_results['images']} images",
         "ms": u1cc["connected_components_ms"],
@@ -2766,7 +3327,8 @@ def main(argv=None):
     b1 = bf16_results["stage1_B1_K307200"]["separable"]
     bk = bf16_results["tile_skip_stage1_B1_K307200_concentrated"]
     for name, line, entry, launched in (
-            ("fused_uoms_cross_attention(bf16)", 334, b1, bf16_launches + r50_bf16_launches),
+            ("fused_uoms_cross_attention(bf16)", 334, b1,
+             bf16_launches + r50_bf16_launches + ev["msmformer_bf16_ocid"]["launches"]["bf16"]),
             ("fused_uoms_cross_attention(bf16, tile_skip=True)", 483, bk, bf16_skip_launches)):
         kernels.append({
             "name": name,
@@ -2781,8 +3343,10 @@ def main(argv=None):
                                  for f in FORMS]
                                 + [r["bf16_max_abs_err"] for r in r50_results.values()])
                             if line == 334 else bk["max_abs_err"]),
-            **({"launches_by_path": {"bf16_main": bf16_launches,
-                                     "r50_main": r50_bf16_launches}} if line == 334 else {}),
+            **({"launches_by_path": {
+                "bf16_main": bf16_launches, "r50_main": r50_bf16_launches,
+                "eval_main": ev["msmformer_bf16_ocid"]["launches"]["bf16"]}}
+               if line == 334 else {}),
             "max_abs_err_of": "bf16 output against the bf16 twin (tol 2e-2)",
             **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
@@ -2793,7 +3357,8 @@ def main(argv=None):
         })
     print(json.dumps({"presets_main": preset_results, "grouped_towers": grouped_results,
                       "stream_main": stream_results, "stage1_no_sync": no_sync,
-                      "seed_limits": seed_limits, "train": train_results}), flush=True)
+                      "seed_limits": seed_limits, "train": train_results,
+                      "eval": eval_results}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

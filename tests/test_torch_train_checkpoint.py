@@ -6,7 +6,8 @@
   ``build_two_stage_predictor(checkpoint=...)``.
 - The CLI trains, writes checkpoint_<step>.pth and metrics.jsonl, and
   resumes from --output; what is not ported raises a ValueError naming its
-  ROADMAP item.
+  ROADMAP item (evaluation during training runs since the readers and the
+  metric are ported: tests/test_torch_eval_cli.py).
 """
 
 import json
@@ -66,7 +67,7 @@ def test_cli_trains_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--dataset", "tabletop_object"], "item 12"), (["--devices", "2"], "item 13"),
-    (["--eval-period", "5"], "item 14")])
+    (["--dataset", "tabletop_object", "--eval-period", "5"], "item 12")])
 def test_cli_refuses_what_is_not_ported(flags, item):
     with pytest.raises(ValueError, match=item):
         train_msmformer.check_args(train_msmformer.parse_args(flags))

@@ -7,19 +7,25 @@ lr x0.1, clip 0.01, deep supervision):
   python -m unseenobjectswithmeanshift_torch.cli.train_msmformer \\
       --dataset synthetic --iters 9000 --batch 4 --output out/ \\
       [--crop] [--bf16] [--embedding-loss] [--scene-style ocid] \\
-      [--init-backbone ucn.pth] [--checkpoint-period N] [--log-period N]
+      [--init-backbone ucn.pth] [--checkpoint-period N] [--log-period N] \\
+      [--eval-period N --eval-samples 8]
 
 --crop trains the 224x224 crop network (SYN_CROP: whole scenes rendered at
 480x640, one object's padded square crop each). The run resumes from the
 newest checkpoint_<step>.pth in --output when there is one (--fresh
 ignores it) and appends {"kind": "train", "iter": ...} records to
-<output>/metrics.jsonl every --log-period steps. A checkpoint serves with
+<output>/metrics.jsonl every --log-period steps. With --eval-period N
+(JAX ``cli/train_msmformer.py:148-200``; the reference's TEST.EVAL_PERIOD)
+every N steps the network labels --eval-samples held-out clean scenes
+(image_set "test", no augmentation, rendered once on the card) through
+``stage1_labels``, scores them with ``multilabel_metrics``, prints the
+metric block and appends a {"kind": "eval", "iter": ...} record. A checkpoint serves with
 ``build_two_stage_predictor(checkpoint=...)`` (the whole-image network) or
 ``checkpoint_crop=`` (the crop network).
 
 Not ported yet, each refused with a ValueError naming its ROADMAP item: the
-file-based datasets (--dataset tabletop_object, item 12), training on more
-than one card (item 13), evaluation during training (item 14).
+file-based datasets (--dataset tabletop_object, item 12) and training on
+more than one card (item 13).
 """
 
 from __future__ import annotations
@@ -33,8 +39,10 @@ import torch
 
 from ..config import get_config
 from ..data.synthetic_device import SyntheticDeviceLoader
+from ..pipeline.two_stage import stage1_labels
 from ..train.trainer import Trainer
 from ..utils import checkpoint_io
+from ..utils.evaluation import aggregate_metrics, multilabel_metrics, print_metrics
 from ..weights import load_reference_checkpoint
 
 
@@ -61,7 +69,9 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--devices", type=int, default=1, help="cards to train on (1)")
     p.add_argument("--eval-period", type=int, default=0,
-                   help="evaluate every N steps (0: never; not ported)")
+                   help="score held-out clean scenes every N steps (0: never, as every "
+                        "shipped config)")
+    p.add_argument("--eval-samples", type=int, default=8)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -74,9 +84,11 @@ def check_args(args):
     if args.devices != 1:
         raise ValueError(f"--devices {args.devices}: data-parallel training is not ported "
                          "(ROADMAP queue 1 item 13)")
-    if args.eval_period:
-        raise ValueError("--eval-period: evaluation during training needs "
-                         "utils/evaluation.py, not ported (ROADMAP queue 1 item 14)")
+
+
+def image_hw(args):
+    """The training size: --image-size, else 224x224 with --crop, else 480x640."""
+    return tuple(args.image_size) if args.image_size else ((224, 224) if args.crop else (480, 640))
 
 
 def build(args):
@@ -85,7 +97,7 @@ def build(args):
     cfg.solver.base_lr = args.lr
     cfg.loss.use_embedding_loss = cfg.loss.use_embedding_loss or args.embedding_loss
     cfg.dtype = "bfloat16" if args.bf16 else "float32"
-    hw = tuple(args.image_size) if args.image_size else ((224, 224) if args.crop else (480, 640))
+    hw = image_hw(args)
     trainer = Trainer(cfg, device=args.device)
     if args.init_backbone:
         sd = {k if k.startswith("pretrained_backbone.") else "pretrained_backbone." + k: v
@@ -105,12 +117,46 @@ def build(args):
     return trainer, loader
 
 
+def eval_scenes(args, cfg, hw):
+    """The held-out evaluation scenes, rendered once on the card: scene i of
+    the "test" split, clean (no augmentation), as the JAX CLI renders them
+    one at a time. -> [(image [1, H, W, 3], xyz [1, H, W, 3], label [H, W]
+    int32 numpy)]."""
+    vload = SyntheticDeviceLoader(
+        1, height=hw[0], width=hw[1], max_gt=cfg.loss.max_gt_instances, image_set="test",
+        seed=0, augment=False, syn_crop=args.crop, crop_size=hw[0],
+        scene_style=args.scene_style, device=args.device)
+    scenes = []
+    for i in range(args.eval_samples):
+        b = vload.batch_at(i)
+        scenes.append((b["image"], b["xyz"], b["label_image"][0].cpu().numpy()))
+    return scenes
+
+
+def evaluate_scenes(model, cfg, scenes):
+    """Stage-1 labels of each scene from the network in eval mode (running
+    BatchNorm statistics), scored against its instances -> averaged metrics."""
+    model.eval()
+    metrics = []
+    with torch.inference_mode():
+        for image, xyz, label in scenes:
+            out = model(image, xyz, light=True)
+            per = {k: out[k][0] for k in ("pred_logits", "mask_embed", "mask_features")}
+            lab, _ = stage1_labels(cfg, per, xyz[0], tuple(image.shape[1:3]))
+            metrics.append(multilabel_metrics(lab.cpu().numpy(), label))
+    model.train()
+    return aggregate_metrics(metrics)
+
+
 def main(argv=None):
     args = parse_args(argv)
     check_args(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     trainer, loader = build(args)
+    scenes = None
+    if args.eval_period > 0:
+        scenes = eval_scenes(args, trainer.cfg, image_hw(args))
     os.makedirs(args.output, exist_ok=True)
     latest = None if args.fresh else checkpoint_io.latest_checkpoint(args.output)
     if latest:
@@ -133,6 +179,12 @@ def main(argv=None):
                   f"{record['loss_ce']:.4f} mask {record['loss_mask']:.4f} dice "
                   f"{record['loss_dice']:.4f} skipped {record['skipped_nonfinite']:.0f} "
                   f"({dt:.3f} s/it)", flush=True)
+        if scenes is not None and it % args.eval_period == 0:
+            agg = evaluate_scenes(trainer.model, trainer.cfg, scenes)
+            print(f"eval at iter {it} on {len(scenes)} held-out scenes:")
+            print_metrics(agg)
+            with open(log_path, "a") as f:
+                f.write(json.dumps({"kind": "eval", "iter": it, **agg}) + "\n")
         if it % args.checkpoint_period == 0 or it == args.iters:
             path = checkpoint_io.save(checkpoint_io.checkpoint_path(args.output, it), trainer)
             print(f"saved {path}", flush=True)
