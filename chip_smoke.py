@@ -206,6 +206,7 @@ traceback and a non-zero exit code. Without CUDA the script fails at once.
 import argparse
 import contextlib
 import copy
+import heapq
 import json
 import os
 import math
@@ -2959,6 +2960,651 @@ def eval_main_phase(results, weights=None):
     return results
 
 
+# ---- 28-30: training on files (a TOD tree written from scenes rendered on
+# the card: JPEG colour through this baseline encoder, PNG depth and labels)
+
+JPEG_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
+    27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44,
+    51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+JPEG_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+    14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113,
+    92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+JPEG_CHROMA_Q = np.full(64, 99)
+JPEG_CHROMA_Q[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [
+    17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+
+
+def _huffman_lengths(counts):
+    """Code lengths (at most 16 bits, no all-ones code) for symbol counts
+    {symbol: count}: Huffman's merge, then JPEG Annex K.3's length limit."""
+    heap = [(c, i, [s]) for i, (s, c) in enumerate(sorted(counts.items()))]
+    heap.append((0, -1, [None]))               # the reserved symbol: no code is all ones
+    heapq.heapify(heap)
+    size = {s: 0 for s in counts}
+    size[None] = 0
+    tick = len(heap)
+    while len(heap) > 1:
+        c1, _, a = heapq.heappop(heap)
+        c2, _, b = heapq.heappop(heap)
+        for s in a + b:
+            size[s] += 1
+        heapq.heappush(heap, (c1 + c2, tick, a + b))
+        tick += 1
+    bits = np.zeros(33, np.int64)
+    for s, l in size.items():
+        bits[l] += 1
+    for i in range(32, 16, -1):                # Annex K.3 adjust_bits
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1                               # drop the reserved symbol's code
+    order = sorted(counts, key=lambda s: (size[s], s))   # shortest codes first
+    lengths, k = {}, 0
+    for l in range(1, 17):
+        for _ in range(bits[l]):
+            lengths[order[k]] = l
+            k += 1
+    return lengths
+
+
+def _huffman_table(counts):
+    """(DHT counts [16], values, {symbol: (code, length)})."""
+    lengths = _huffman_lengths(counts)
+    values = sorted(lengths, key=lambda s: (lengths[s], s))
+    codes, code, prev = {}, 0, 0
+    for s in values:
+        code <<= lengths[s] - prev
+        prev = lengths[s]
+        codes[s] = (code, lengths[s])
+        code += 1
+    hist = [sum(1 for s in values if lengths[s] == l) for l in range(1, 17)]
+    return hist, values, codes
+
+
+def _dct_matrix():
+    k, n = np.arange(8)[:, None], np.arange(8)[None, :]
+    c = np.cos((2 * n + 1) * k * np.pi / 16) * np.sqrt(2 / 8)
+    c[0] /= np.sqrt(2)
+    return c
+
+
+def _category(v):
+    """(size, extra bits) of a DC difference or AC coefficient."""
+    a = abs(int(v))
+    s = a.bit_length()
+    return s, (int(v) if v >= 0 else int(v) + (1 << s) - 1)
+
+
+def encode_jpeg(bgr, quality=90, subsample=True, restart=0) -> bytes:
+    """A baseline JFIF JPEG of bgr uint8 [H, W, 3]: YCbCr (JFIF), 4:2:0 with
+    subsample else 4:4:4, numpy DCT, the standard quantization tables scaled
+    to quality as libjpeg scales them, Huffman tables built from the file's
+    symbol counts (Annex K.2-K.3), restart markers every ``restart`` MCUs."""
+    h, w = bgr.shape[:2]
+    b, g, r = (bgr[..., i].astype(np.float64) for i in range(3))
+    ycc = [0.299 * r + 0.587 * g + 0.114 * b,
+           -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+           0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    f = 2 if subsample else 1
+    mh, mw = -(-h // (8 * f)) * 8 * f, -(-w // (8 * f)) * 8 * f
+    planes = []
+    for i, p in enumerate(ycc):
+        p = np.pad(p, ((0, mh - h), (0, mw - w)), mode="edge")
+        if i and f == 2:
+            p = p.reshape(mh // 2, 2, mw // 2, 2).mean((1, 3))
+        planes.append(np.clip(np.round(p), 0, 255) - 128)
+    scale = 5000 / quality if quality < 50 else 200 - 2 * quality
+    qts = [np.clip((base * scale + 50) // 100, 1, 255).astype(np.int64)
+           for base in (JPEG_LUMA_Q, JPEG_CHROMA_Q)]          # in zigzag order
+    c = _dct_matrix()
+    coefs = []                                  # per component [by, bx, 64] zigzag
+    for i, p in enumerate(planes):
+        ph, pw = p.shape
+        blocks = p.reshape(ph // 8, 8, pw // 8, 8).transpose(0, 2, 1, 3)
+        dct = np.einsum("ij,abjk,lk->abil", c, blocks, c).reshape(ph // 8, pw // 8, 64)
+        coefs.append(np.round(dct[..., JPEG_ZIGZAG] / qts[min(i, 1)]).astype(np.int64))
+    mcux, mcuy = mw // (8 * f), mh // (8 * f)
+    layout = [(0, f, f), (1, 1, 1), (2, 1, 1)]          # component, h, v
+    units = []                                          # (component, block) in scan order
+    for m in range(mcux * mcuy):
+        my, mx = divmod(m, mcux)
+        for comp, hh, vv in layout:
+            for v in range(vv):
+                for u in range(hh):
+                    units.append((m, comp, coefs[comp][my * vv + v, mx * hh + u]))
+    # symbols: (table, symbol, extra bits, extra length), restarts marked
+    syms, pred, counts, last_m = [], [0, 0, 0], [{}, {}, {}, {}], 0
+    for m, comp, blk in units:
+        if restart and m != last_m and m % restart == 0:
+            syms.append(("rst", m // restart - 1))
+            pred = [0, 0, 0]
+        last_m = m
+        t = min(comp, 1)
+        diff = int(blk[0]) - pred[comp]
+        pred[comp] = int(blk[0])
+        s, e = _category(diff)
+        syms.append((2 * t, s, e, s))
+        run = 0
+        nz = np.nonzero(blk[1:])[0]
+        last = nz[-1] + 1 if nz.size else 0
+        for k in range(1, last + 1):
+            v = int(blk[k])
+            if v == 0:
+                run += 1
+                continue
+            while run > 15:
+                syms.append((2 * t + 1, 0xF0, 0, 0))
+                run -= 16
+            s, e = _category(v)
+            syms.append((2 * t + 1, (run << 4) | s, e, s))
+            run = 0
+        if last < 63:
+            syms.append((2 * t + 1, 0x00, 0, 0))
+    for sym in syms:
+        if sym[0] != "rst":
+            counts[sym[0]][sym[1]] = counts[sym[0]].get(sym[1], 0) + 1
+    tables = [_huffman_table(cn) if cn else ([1] + [0] * 15, [0], {0: (0, 1)}) for cn in counts]
+    out, acc, nacc = bytearray(), 0, 0
+
+    def flush_bits():
+        nonlocal acc, nacc
+        while nacc >= 8:
+            byte = (acc >> (nacc - 8)) & 0xFF
+            out.append(byte)
+            if byte == 0xFF:
+                out.append(0)
+            nacc -= 8
+        acc &= (1 << nacc) - 1
+
+    data = bytearray()
+    for sym in syms:
+        if sym[0] == "rst":
+            if nacc % 8:
+                pad = 8 - nacc % 8
+                acc, nacc = (acc << pad) | ((1 << pad) - 1), nacc + pad
+            flush_bits()
+            out += bytes([0xFF, 0xD0 + (sym[1] & 7)])
+            continue
+        code, length = tables[sym[0]][2][sym[1]]
+        acc, nacc = (acc << length) | code, nacc + length
+        if sym[3]:
+            acc, nacc = (acc << sym[3]) | sym[2], nacc + sym[3]
+        flush_bits()
+    if nacc:
+        pad = 8 - nacc
+        acc, nacc = (acc << pad) | ((1 << pad) - 1), nacc + pad
+        flush_bits()
+    data = bytes(out)
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+    head = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for i, q in enumerate(qts):
+        head += seg(0xDB, bytes([i]) + bytes(q.astype(np.uint8)))
+    comps = bytes([1, (f << 4) | f, 0, 2, 0x11, 1, 3, 0x11, 1])
+    head += seg(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big") + bytes([3])
+                + comps)
+    for k, (hist, values, _) in enumerate(tables):
+        head += seg(0xC4, bytes([((k & 1) << 4) | (k >> 1)] + hist + values))
+    if restart:
+        head += seg(0xDD, restart.to_bytes(2, "big"))
+    head += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return head + data + b"\xff\xd9"
+
+
+TOD_SCENES, TOD_TEST_SCENES, TOD_BATCH, TOD_VIEWS = 8, 1, 16, 7
+# phases 28-31 run on FILES_DEVICE at EVAL_HW (both settable, so that the
+# phases can be tried on the CPU at a toy size)
+FILES_DEVICE = "cuda"
+# a UCN step on the card against its CPU copy at 96x128: every loss term and
+# the global gradient norm within UCN_CPU_TOL of the CPU's (the SEGNET's
+# convolutions in fp32 with TF32 off on both; cuDNN and the CPU sum in other
+# orders; a layout or loss fault shows as O(0.1))
+UCN_CPU_TOL = 1e-3
+
+
+def sync():
+    if FILES_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_ms(fn, reps=15):
+    """Median wall ms of fn() over reps calls (host work: no sync)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rendered_views(n, seed=0, chunk=16):
+    """n OCID-style frames rendered on the card (render_eval_frames), in
+    chunks: (bgr uint8, label int32 objects 1.., table bool, xyz with NaN)."""
+    parts = [render_eval_frames(min(chunk, n - s), seed + s) for s in range(0, n, chunk)]
+    return tuple(np.concatenate([p[i] for p in parts]) for i in range(4))
+
+
+def jpeg_check_phase():
+    """28. JPEG files of rendered 480x640 frames written by encode_jpeg
+    (4:2:0 q90, 4:4:4 q95, 4:2:0 with restart markers every 7 MCUs): the
+    native decoder equals the numpy twin bit for bit, both near the frame
+    encoded; decode ms a frame of each."""
+    from unseenobjectswithmeanshift_torch.utils.jpeg import decode_jpeg
+
+    bgr = rendered_views(3, seed=40)[0]
+    res = {}
+    for i, (tag, kw) in enumerate((("420_q90", dict(quality=90, subsample=True)),
+                                   ("444_q95", dict(quality=95, subsample=False)),
+                                   ("420_q90_rst7", dict(quality=90, subsample=True,
+                                                         restart=7)))):
+        t0 = time.perf_counter()
+        data = encode_jpeg(bgr[i], **kw)
+        enc_s = time.perf_counter() - t0
+        got = decode_jpeg(data)
+        t0 = time.perf_counter()
+        twin = decode_jpeg(data, backend="numpy")
+        twin_s = time.perf_counter() - t0
+        if not np.array_equal(got, twin):
+            raise AssertionError(f"jpeg_check {tag}: the native decoder differs from its numpy "
+                                 f"twin at {int((got != twin).sum())} samples")
+        err = float(np.abs(got.astype(np.int64) - bgr[i]).mean())
+        assert got.shape == (*EVAL_HW, 3) and err < 8, f"jpeg_check {tag}: mean error {err}"
+        ms = host_ms(lambda: decode_jpeg(data))
+        res[tag] = {"bytes": len(data), "native_ms": ms, "numpy_s": twin_s,
+                    "encode_s": enc_s, "mean_abs_err": err}
+        sync_print(f"jpeg_check {tag}: {len(data)} bytes, native == numpy twin bit for bit, "
+                   f"mean |decoded - frame| {err:.2f}; decode native {ms:.2f} ms a frame, "
+                   f"numpy twin {twin_s:.2f} s, encode {enc_s:.2f} s [{CARD}; host CPU]")
+    return res
+
+
+def augment_check_phase():
+    """29. Each augmentation and crop resize of the TOD reader on a rendered
+    480x640 frame through the native path and its numpy twin, from one
+    RandomState each: equal bit for bit (tests/test_torch_augmentation.py
+    holds both to cv2 and the JAX functions). ms of each, native / twin."""
+    from unseenobjectswithmeanshift_torch.data import augmentation as aug
+    from unseenobjectswithmeanshift_torch.data import image_ops
+    from unseenobjectswithmeanshift_torch.data.datasets import fov_intrinsics
+
+    bgr, _, _, xyz = rendered_views(1, seed=41)
+    bgr, xyz = bgr[0], np.nan_to_num(xyz[0])
+    depth = xyz[..., 2].copy()
+    i = fov_intrinsics()
+    xyz = compute_xyz(torch.from_numpy(depth), i["fx"], i["fy"], i["x_offset"],
+                      i["y_offset"]).numpy()
+    h, w = EVAL_HW
+    crop = (slice(h // 5, h * 4 // 5), slice(w // 4, w * 2 // 3))
+    cases = {
+        "dropout_random_ellipses": lambda b, r: aug.dropout_random_ellipses(depth, rng=r,
+                                                                           backend=b),
+        "add_noise_to_xyz (cubic)": lambda b, r: aug.add_noise_to_xyz(xyz, depth, rng=r,
+                                                                      backend=b),
+        "chromatic_transform (HLS)": lambda b, r: aug.chromatic_transform(bgr, rng=r,
+                                                                          backend=b),
+        "add_noise": lambda b, r: aug.add_noise(bgr, rng=r, backend=b),
+        **{f"motion_blur_{s}{'h' if h else 'v'}": (
+            lambda b, r, s=s, h=h: image_ops.filter_line_u8(bgr, s, h, b))
+           for s in (3, 15) for h in (True, False)},
+        "crop_resize_linear_u8": lambda b, r: image_ops.resize_linear_u8(bgr[crop], 224, 224, b),
+    }
+    res = {}
+    for name, fn in cases.items():
+        out, ms = {}, {}
+        for b in ("native", "numpy"):
+            t0 = time.perf_counter()
+            out[b] = fn(b, np.random.RandomState(5))
+            ms[b] = (time.perf_counter() - t0) * 1e3
+        if out["native"].shape != out["numpy"].shape or not np.array_equal(out["native"],
+                                                                           out["numpy"]):
+            raise AssertionError(f"augment_check {name}: native and numpy twin differ")
+        res[name] = ms
+    lab = np.random.RandomState(6).randint(0, 9, (297, 291)).astype(np.int32)
+    near = image_ops.resize_nearest(lab, 224, 224)
+    assert near.shape == (224, 224) and set(np.unique(near)) <= set(np.unique(lab))
+    sync_print("augment_check: native == numpy twin bit for bit on a rendered 480x640 frame; "
+               "ms native / twin: " + ", ".join(f"{k} {v['native']:.1f} / {v['numpy']:.1f}"
+                                                for k, v in res.items()) + f" [{CARD}; host CPU]")
+    return res
+
+
+def write_tod_tree(d, seed=0):
+    """A TOD tree of TOD_SCENES training and TOD_TEST_SCENES test scenes of
+    7 views, rendered on the card at 480x640: rgb_*.jpeg (encode_jpeg,
+    4:2:0 q90), depth_*.png (uint16 mm, 0 where the depth is missing),
+    segmentation_*.png (8-bit grey: table 1, objects 2..). -> root."""
+    from unseenobjectswithmeanshift_torch.utils.image_io import write_png
+
+    n = (TOD_SCENES + TOD_TEST_SCENES) * TOD_VIEWS
+    bgr, label, table, xyz = rendered_views(n, seed=seed)
+    depth = np.nan_to_num(xyz[..., 2] * 1000).round().clip(0, 65535).astype(np.uint16)
+    seg = np.where(label > 0, label + 1, np.where(table, 1, 0)).astype(np.uint8)
+    for k in range(n):
+        s, v = divmod(k, TOD_VIEWS)
+        split = "training_set" if s < TOD_SCENES else "test_set"
+        scene = os.path.join(d, split, f"scene_{s:05d}")
+        os.makedirs(scene, exist_ok=True)
+        with open(os.path.join(scene, f"rgb_{v:05d}.jpeg"), "wb") as f:
+            f.write(encode_jpeg(bgr[k], quality=90))
+        write_png(os.path.join(scene, f"depth_{v:05d}.png"), depth[k])
+        write_png(os.path.join(scene, f"segmentation_{v:05d}.png"), seg[k])
+    return d
+
+
+def loader_rate(root):
+    """Samples a second of the TOD reader's training loader through its one
+    producer thread, as train_net runs it (B=16, augmentations on, batches
+    copied to the card), over one epoch; and the reader's parts on one
+    sample, ms."""
+    from unseenobjectswithmeanshift_torch.data import augmentation as aug
+    from unseenobjectswithmeanshift_torch.data.datasets import TableTopObject
+    from unseenobjectswithmeanshift_torch.data.loader import BatchLoader
+    from unseenobjectswithmeanshift_torch.utils.image_io import (
+        IMREAD_ANYDEPTH, imread, imread_indexed,
+    )
+
+    ds = TableTopObject(root, "train", seed=0)
+    loader = BatchLoader(ds, TOD_BATCH, seed=0, device=FILES_DEVICE, masks=False)
+    t0 = time.perf_counter()
+    n = 0
+    for b in loader:
+        n += b["image"].shape[0]
+    sync()
+    rate = n / (time.perf_counter() - t0)
+    scene = ds.scene_dirs[0]
+    rng = np.random.RandomState(0)
+    parts = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        parts[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    part("label png", lambda: imread_indexed(os.path.join(scene, "segmentation_00000.png")))
+    im = part("jpeg", lambda: imread(os.path.join(scene, "rgb_00000.jpeg")))
+    d16 = part("depth png", lambda: imread(os.path.join(scene, "depth_00000.png"),
+                                           IMREAD_ANYDEPTH))
+    depth = (d16 / 1000.0).astype(np.float32)
+    depth = part("gamma + ellipses", lambda: aug.dropout_random_ellipses(
+        aug.add_noise_to_depth(depth, rng=rng), rng=rng))
+    i = ds.intrinsics
+    xyz = compute_xyz(torch.from_numpy(depth), i["fx"], i["fy"], i["x_offset"],
+                      i["y_offset"]).numpy()
+    part("xyz noise (cubic)", lambda: aug.add_noise_to_xyz(xyz, depth, rng=rng))
+    im = part("chromatic (HLS)", lambda: aug.chromatic_transform(im, rng=rng))
+    part("noise", lambda: aug.add_noise(im, rng=rng))
+    part("whole sample", lambda: ds[3])
+    return rate, parts
+
+
+def ucn_cpu_agreement():
+    """One UCN train forward and backward of the full-width RGB-D SEGNET at
+    96x128, B=2, on the card and on a CPU copy (same weights and batch):
+    loss, intra, inter and the global gradient norm (UCN_CPU_TOL)."""
+    from unseenobjectswithmeanshift_torch.train.ucn import UCNTrainer
+
+    cfg = get_config("tabletop_pretrained")
+    tr = UCNTrainer(cfg, 1, device=FILES_DEVICE)
+    cpu = UCNTrainer(cfg, 1, device="cpu", model=copy.deepcopy(tr.model).cpu())
+    batch = SyntheticDeviceLoader(2, height=96, width=128, max_gt=cfg.loss.max_gt_instances,
+                                  seed=0, device=FILES_DEVICE).batch_at(0)
+    got, want = {}, {}
+    for t, b, out in ((tr, batch, got), (cpu, {k: v.cpu() for k, v in batch.items()}, want)):
+        t.optimizer.zero_grad()
+        loss, intra, inter = t.loss(b)
+        loss.backward()
+        out.update(loss=loss.item(), intra=intra.item(), inter=inter.item(),
+                   grad_norm=grad_norm(t.model))
+    dev = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-3) for k in want}
+    worst = max(dev, key=dev.get)
+    sync_print(f"train_files ucn step 96x128 B=2, card vs CPU: {got} vs {want}; worst relative "
+               f"deviation {dev[worst]:.2e} ({worst}; tol {UCN_CPU_TOL:.0e})")
+    if dev[worst] > UCN_CPU_TOL:
+        raise AssertionError("the UCN step on the card disagrees with its CPU copy")
+    return {"card": got, "cpu": want, "deviation": dev}
+
+
+def ucn_step_ms(root, crop=False, steps=4, warmup=2):
+    """Median ms of a UCN train step (B=16, fp32) on one batch of the TOD
+    reader (whole image, or SYN_CROP 224^2 crops), synchronized, and the
+    peak memory in GiB."""
+    from unseenobjectswithmeanshift_torch.data.datasets import TableTopObject
+    from unseenobjectswithmeanshift_torch.data.loader import BatchLoader
+    from unseenobjectswithmeanshift_torch.train.ucn import UCNTrainer
+
+    ds = TableTopObject(root, "train", syn_crop=crop, seed=0)
+    batch = next(iter(BatchLoader(ds, TOD_BATCH, seed=0, device=FILES_DEVICE, masks=False,
+                                  prefetch=0)))
+    tr = UCNTrainer(get_config("tabletop_pretrained"), 1, device=FILES_DEVICE)
+    on_card = FILES_DEVICE == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(warmup + steps):
+        sync()
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(batch)["loss"])
+        sync()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    assert all(math.isfinite(v) for v in losses), losses
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    return statistics.median(times), peak, losses
+
+
+def records(path):
+    with open(os.path.join(path, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_net_run(tag, argv, profile=False):
+    """cli.train_net.main(argv) -> (seconds, records, device busy ms or None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from unseenobjectswithmeanshift_torch.cli import train_net
+
+    t0 = time.perf_counter()
+    busy = None
+    if profile:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train_net.main(argv)
+            sync()
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+    else:
+        train_net.main(argv)
+    seconds = time.perf_counter() - t0
+    out = argv[argv.index("--output") + 1]
+    recs = records(out)
+    bad = [r for r in recs if r["kind"] == "train" and not math.isfinite(r["loss"])]
+    assert not bad, f"train_files {tag}: non-finite losses {bad}"
+    return seconds, recs, busy
+
+
+def serve_ucn_checkpoint(path, root):
+    """The train_net checkpoint served through build_ucn_predictor("ucn_rgbd_add",
+    checkpoint=path) on one clean test-split frame: FPS and connected-
+    components launches counted (stage 1 always; stage 2 where crops are)."""
+    from unseenobjectswithmeanshift_torch.data.datasets import TableTopObject
+
+    s = TableTopObject(root, "test", seed=1, use_augmentation=False, chromatic=False,
+                       add_noise=False)[0]
+    pred = build_ucn_predictor("ucn_rgbd_add", checkpoint=path, device=FILES_DEVICE)
+    image = torch.from_numpy(s["image"][None]).to(FILES_DEVICE)
+    xyz = torch.from_numpy(s["xyz"][None]).to(FILES_DEVICE)
+    zero_counts()
+    labels, refined = pred(image, xyz)
+    sync()
+    launches = kernel_counts()
+    assert labels.shape == (1, *EVAL_HW) and labels.dtype == torch.int32
+    if FILES_DEVICE == "cuda":          # CPU tensors take the plain versions: no launch
+        assert launches["fps_seeds"] >= 1 and launches["connected_components"] >= 1, launches
+    return {"launches": launches, "instances": int(labels.max()),
+            "instances_refined": int(refined.max())}
+
+
+def train_files_main_phase(results):
+    """30. Training on files on the card: a TOD tree of rendered scenes,
+    the loader's rate and parts, cli.train_net on it (2 epochs whole image
+    fp32 at B=16 with a profiled epoch, 1 epoch --crop, 1 epoch --bf16, a
+    run resumed at epoch 1 that pulls the uninterrupted run's batches),
+    the last checkpoint served through a ucn_* preset, UCN step ms and
+    peak memory, the card against its CPU copy, and cli.train_msmformer
+    --dataset tabletop_object with --eval-period (row 1 launches counted)."""
+    import tempfile
+
+    from unseenobjectswithmeanshift_torch.cli import train_msmformer
+
+    d = tempfile.mkdtemp(prefix="uoms_tod_")
+    try:
+        root = os.path.join(d, "tod")
+        t0 = time.perf_counter()
+        write_tod_tree(root)
+        results["tree_s"] = time.perf_counter() - t0
+        sync_print(f"train_files: TOD tree of {TOD_SCENES} + {TOD_TEST_SCENES} scenes x "
+                   f"{TOD_VIEWS} views at 480x640 rendered and written in "
+                   f"{results['tree_s']:.1f} s")
+        rate, parts = loader_rate(root)
+        results["loader"] = {"samples_per_s": rate, "parts_ms": parts}
+        sync_print(f"train_files loader: {rate:.2f} samples/s through one producer thread "
+                   f"(B={TOD_BATCH}, augmentations on, copied to the card: "
+                   f"{TOD_BATCH / rate * 1e3:.0f} ms a batch); one sample's parts ms: "
+                   + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f" [{CARD}; host CPU]")
+        results["cpu_agreement"] = ucn_cpu_agreement()
+        for crop in (False, True):
+            ms, peak, losses = ucn_step_ms(root, crop)
+            results["step_crop" if crop else "step_whole"] = {
+                "ms": ms, "peak_gib": peak, "losses": losses}
+            sync_print(f"train_files ucn step B={TOD_BATCH} fp32 "
+                       f"{'224^2 crops' if crop else '480x640'}: {ms:.1f} ms median, peak "
+                       f"{peak:.2f} GiB, losses {[round(v, 4) for v in losses]} [{CARD}]")
+            torch.cuda.empty_cache()
+        common = ["--root", root, "--batch", str(TOD_BATCH), "--log-period", "1",
+                  "--log-batches", "--device", FILES_DEVICE]
+        a, b = os.path.join(d, "a"), os.path.join(d, "b")
+        secs, rec_a, busy = train_net_run("fp32", common + ["--epochs", "2", "--output", a],
+                                          profile=True)
+        steps = sum(1 for r in rec_a if r["kind"] == "train")
+        results["train_net_fp32"] = {"seconds": secs, "steps": steps, "device_busy_ms": busy,
+                                     "device_idle_share": max(0.0, 1 - busy / (secs * 1e3))}
+        sync_print(f"train_files train_net fp32: 2 epochs, {steps} steps at B={TOD_BATCH} in "
+                   f"{secs:.1f} s (profiled) ({secs / steps * 1e3:.0f} ms a step with the "
+                   f"loader and the epoch saves); device busy {busy:.0f} ms, idle share "
+                   f"{results['train_net_fp32']['device_idle_share']:.2f} [{CARD}]")
+        infix = "seg_resnet34_8s_embedding_cosine_rgbd_add"
+        secs, rec_b, _ = train_net_run("resumed", common + [
+            "--epochs", "2", "--output", b, "--start-epoch", "1", "--pretrained",
+            os.path.join(a, f"{infix}_epoch_1.checkpoint.pth")])
+        want = [(r["files"], r["checksum"]) for r in rec_a if r["kind"] == "batch"
+                and r["epoch"] == 2]
+        got = [(r["files"], r["checksum"]) for r in rec_b if r["kind"] == "batch"]
+        if got != want or not got:
+            raise AssertionError(f"train_files: the run resumed at epoch 1 pulled other batches "
+                                 f"than the uninterrupted run: {got} vs {want}")
+        loss_a = [r["loss"] for r in rec_a if r["kind"] == "train" and r["epoch"] == 2]
+        loss_b = [r["loss"] for r in rec_b if r["kind"] == "train"]
+        results["resume"] = {"batches": len(got), "losses": loss_a, "losses_resumed": loss_b}
+        sync_print(f"train_files resume at epoch 1: the same {len(got)} batches (file names "
+                   f"and checksums) as the uninterrupted run; epoch-2 losses {loss_a} vs "
+                   f"resumed {loss_b} ({secs:.1f} s)")
+        for tag, extra in (("crop", ["--crop"]), ("bf16", ["--bf16"])):
+            out = os.path.join(d, tag)
+            secs, recs, _ = train_net_run(tag, common + ["--epochs", "1", "--output", out]
+                                          + extra)
+            losses = [r["loss"] for r in recs if r["kind"] == "train"]
+            results[f"train_net_{tag}"] = {"seconds": secs, "losses": losses}
+            sync_print(f"train_files train_net --{tag}: 1 epoch, {len(losses)} steps in "
+                       f"{secs:.1f} s, losses {[round(v, 4) for v in losses]} [{CARD}]")
+        torch.cuda.empty_cache()
+        results["served"] = serve_ucn_checkpoint(
+            os.path.join(a, f"{infix}_epoch_2.checkpoint.pth"), root)
+        sync_print(f"train_files: the epoch-2 checkpoint served by build_ucn_predictor("
+                   f"'ucn_rgbd_add', checkpoint=...): {results['served']}")
+        torch.cuda.empty_cache()
+        msm = os.path.join(d, "msm")
+        n_eval = 4
+        zero_counts()
+        t0 = time.perf_counter()
+        train_msmformer.main(["--dataset", "tabletop_object", "--root", root, "--iters", "4",
+                              "--batch", "4", "--eval-period", "2", "--eval-samples",
+                              str(n_eval), "--log-period", "1", "--checkpoint-period", "1000",
+                              "--fresh", "--device", FILES_DEVICE, "--output", msm])
+        launches = kernel_counts()
+        recs = records(msm)
+        evals = [r for r in recs if r["kind"] == "eval"]
+        trains = [r for r in recs if r["kind"] == "train"]
+        assert [r["iter"] for r in evals] == [2, 4] and len(trains) == 4
+        assert all(math.isfinite(r["total_loss"]) for r in trains)
+        if FILES_DEVICE == "cuda":
+            assert launches["fused_uoms_cross_attention"] == 6 * n_eval * len(evals), launches
+        results["train_msmformer"] = {"seconds": time.perf_counter() - t0, "launches": launches,
+                                      "evals": evals}
+        sync_print(f"train_files train_msmformer --dataset tabletop_object: 4 steps at B=4, "
+                   f"2 evaluations of {n_eval} test-split frames, "
+                   f"{launches['fused_uoms_cross_attention']} cross-attention launches (6 a "
+                   f"frame), Objects F {[round(r['Objects F-measure'], 4) for r in evals]} "
+                   f"({results['train_msmformer']['seconds']:.1f} s) [{CARD}]")
+    finally:
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    return results
+
+
+def demo_cli_phase():
+    """31. cli.demo.main on a folder of two rendered frames written as the
+    demo reads them (JPEG colour, uint16 depth PNG, camera_params.json),
+    with cv2 unimportable: each written -label.png equals the binary image
+    of label_frame's labels on the same predictor and sample."""
+    import tempfile
+
+    from unseenobjectswithmeanshift_torch.cli import demo
+    from unseenobjectswithmeanshift_torch.utils.image_io import (
+        IMREAD_ANYDEPTH, imread, write_png,
+    )
+    from unseenobjectswithmeanshift_torch.utils.preprocess import fov_intrinsics, read_sample
+
+    bgr, _, _, xyz = rendered_views(2, seed=50)
+    with tempfile.TemporaryDirectory() as d:
+        for k in range(2):
+            with open(os.path.join(d, f"{k:06d}-color.jpg"), "wb") as f:
+                f.write(encode_jpeg(bgr[k], quality=92))
+            write_png(os.path.join(d, f"{k:06d}-depth.png"),
+                      np.nan_to_num(xyz[k][..., 2] * 1000).round().astype(np.uint16))
+        params = fov_intrinsics()
+        with open(os.path.join(d, "camera_params.json"), "w") as f:
+            json.dump(params, f)
+        argv = ["--imgdir", d, "--device", FILES_DEVICE]
+        demo.main(argv)
+        pred, _ = demo.build_predictor(argparse.Namespace(  # the demo's defaults
+            config=None, checkpoint=None, checkpoint_crop=None, bf16=False, no_depth=False,
+            key_stride=1, device=FILES_DEVICE))
+        for k in range(2):
+            s = read_sample(os.path.join(d, f"{k:06d}-color.jpg"),
+                            os.path.join(d, f"{k:06d}-depth.png"), params, device=FILES_DEVICE)
+            refined, _ = demo.label_frame(pred, s["image"], s["xyz"])
+            want = (np.clip(refined, 0, 1) * 255).astype(np.uint8)
+            got = imread(os.path.join(d, f"{k:06d}-color-label.png"), IMREAD_ANYDEPTH)
+            if got is None or not np.array_equal(got, want):
+                raise AssertionError(f"demo_cli: frame {k}'s label PNG differs from label_frame")
+    sync_print("demo_cli: cli.demo.main read 2 JPEG + depth PNG frames and wrote label PNGs "
+               "equal to label_frame's labels, with cv2 and PIL unimportable")
+
+
 def train_eval_scoring(args, pred):
     """The scoring of --eval-period on a network that finds instances (four
     training steps leave the network finding none, and the metric then
@@ -3210,10 +3856,29 @@ def main(argv=None):
         eval_results["train_eval"] = train_eval_phase()
         torch.cuda.empty_cache()
         phase_done("train_eval", t0)
+
+        # 28-31. training on files
+        t0 = time.perf_counter()
+        files_results = {"jpeg_check": jpeg_check_phase()}
+        phase_done("jpeg_check", t0)
+        t0 = time.perf_counter()
+        files_results["augment_check"] = augment_check_phase()
+        phase_done("augment_check", t0)
+        t0 = time.perf_counter()
+        files_results["main"] = train_files_main_phase({})
+        torch.cuda.empty_cache()
+        phase_done("train_files_main", t0)
+        t0 = time.perf_counter()
+        demo_cli_phase()
+        torch.cuda.empty_cache()
+        phase_done("demo_cli", t0)
     ev = eval_results["main"]
     eval_fp32 = sum(ev[k]["launches"]["fused_uoms_cross_attention"]
                     for k in ("msmformer_ocid", "msmformer_osd"))
     eval_ucn = ev["ucn_ocid"]["launches"]
+    files_xattn = files_results["main"]["train_msmformer"]["launches"]
+    files_xattn = files_xattn["fused_uoms_cross_attention"]
+    served = files_results["main"]["served"]["launches"]
 
     s1r = results["stage1_B1_K307200"]["separable"]
     kernels = [{
@@ -3221,9 +3886,9 @@ def main(argv=None):
         "route": "cuda",
         "source": "unseenobjectswithmeanshift_torch/csrc/fused_cross_attention.cu",
         "replaces": "unseenobjectswithmeanshift_tpu/ops/fused_cross_attention.py:334",
-        "launches": launches + r50_launches + eval_fp32,
+        "launches": launches + r50_launches + eval_fp32 + files_xattn,
         "launches_by_path": {"main": launches, "r50_main": r50_launches,
-                             "eval_main": eval_fp32},
+                             "eval_main": eval_fp32, "train_files_main": files_xattn},
         "max_abs_err": max([x["max_abs_err"] for r in results.values() for x in r.values()]
                            + [r["max_abs_err"] for r in r50_results.values()]),
         "ms": s1r["ms"], "plain_ms": s1r["plain_ms"], "bound_ms": s1r["bound_ms"],
@@ -3251,9 +3916,10 @@ def main(argv=None):
                       + ("fps_seeds.cu" if name == "fps_seeds" else "mean_shift_climb.cu"),
             "design": design,
             "replaces": f"unseenobjectswithmeanshift_tpu/ops/pallas_mean_shift.py:{line}",
-            "launches": sum(p[name] for p in ucn_launches.values()) + eval_ucn[name],
+            "launches": (sum(p[name] for p in ucn_launches.values()) + eval_ucn[name]
+                         + served[name]),
             "launches_by_path": {**{p: v[name] for p, v in ucn_launches.items()},
-                                 "eval_main": eval_ucn[name]},
+                                 "eval_main": eval_ucn[name], "train_files_main": served[name]},
             "max_abs_err": max(r[err_key] for r in ucn_results.values()),
             "max_abs_err_of": ("gap to the fp64 argmax of the running minimum distance"
                                if name == "fps_seeds" else
@@ -3277,9 +3943,10 @@ def main(argv=None):
         "replaces": "none: no TPU kernel (the JAX package runs this sweep in XLA, "
                     "unseenobjectswithmeanshift_tpu/ops/mean_shift.py:81)",
         "launches": (sum(p["connected_components"] for p in ucn_launches.values())
-                     + eval_ucn["connected_components"]),
+                     + eval_ucn["connected_components"] + served["connected_components"]),
         "launches_by_path": {**{p: v["connected_components"] for p, v in ucn_launches.items()},
-                             "eval_main": eval_ucn["connected_components"]},
+                             "eval_main": eval_ucn["connected_components"],
+                             "train_files_main": served["connected_components"]},
         "max_abs_err": 0 if cc_results["equal"] else None,
         "max_abs_err_of": f"labels equal to the numpy sweep on {cc_results['images']} images",
         "ms": u1cc["connected_components_ms"],
@@ -3358,7 +4025,7 @@ def main(argv=None):
     print(json.dumps({"presets_main": preset_results, "grouped_towers": grouped_results,
                       "stream_main": stream_results, "stage1_no_sync": no_sync,
                       "seed_limits": seed_limits, "train": train_results,
-                      "eval": eval_results}), flush=True)
+                      "eval": eval_results, "files": files_results}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

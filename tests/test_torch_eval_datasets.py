@@ -74,14 +74,17 @@ def test_uoais_readers_equal_jax(tmp_path):
 
 
 def test_training_branches_refused_naming_item_12(tmp_path):
+    """Item 12's training branches are ported (their samples are held to the
+    JAX reader's in tests/test_torch_train_files.py): each constructs and
+    reads; what stays refused is the host-rendered synthetic_tabletop,
+    which names its own ROADMAP item (14)."""
     tod = write_tod_tree(tmp_path / "tod", np.random.RandomState(3))
-    with pytest.raises(ValueError, match="item 12"):
-        pds.TableTopObject(tod, "test")               # augmentation on by default, as JAX
+    assert pds.TableTopObject(tod, "test", seed=0)[0]["label"].shape == (48, 64)
     for flag in ("syn_crop", "sampling"):
-        with pytest.raises(ValueError, match="item 12"):
-            pds.TableTopObject(tod, "test", use_augmentation=False, chromatic=False,
-                               add_noise=False, **{flag: True})
-    with pytest.raises(ValueError, match="item 12"):
+        ds = pds.TableTopObject(tod, "test", use_augmentation=False, chromatic=False,
+                                add_noise=False, seed=0, **{flag: True})
+        assert ds[0]["image"].shape[-1] == 3
+    with pytest.raises(ValueError, match="item 14"):
         pds.get_dataset("synthetic_tabletop", "4")
 
 

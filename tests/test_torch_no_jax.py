@@ -1,11 +1,14 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package, nor
-cv2 or PyYAML (the card machine has neither: the port imports them inside
-the functions that read JPEG images and YAML files).
+cv2 or PyYAML (the card machine has neither: the port imports cv2 only
+inside the UOAIS readers' Telea inpainting and polygon fill, and PyYAML
+inside the function that reads YAML files).
 
 Runs in a subprocess, because tests/conftest.py imports jax into the pytest
 process. Also checks that chip_smoke.py refuses to run without CUDA, and
 that the port reads OCID and OSD trees and scores them through
-``cli.test_net.evaluate`` in a process where cv2 and PIL cannot be imported.
+``cli.test_net.evaluate``, and reads TOD training samples (JPEG, every
+augmentation, SYN_CROP) equal to the JAX reader's, in a process where cv2
+and PIL cannot be imported.
 """
 
 import functools
@@ -69,6 +72,10 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {f"unseenobjectswithmeanshift_torch.{m}" for m in (
         "utils.image_io", "data.pcd", "native", "utils.evaluation", "data.datasets",
         "data.loader", "data.uoais", "cli.test_net")} <= expected
+    # and training on files: JPEG, the augmentations, UCN training
+    assert {f"unseenobjectswithmeanshift_torch.{m}" for m in (
+        "utils.jpeg", "data.image_ops", "data.augmentation", "train.ucn",
+        "cli.train_net")} <= expected
     assert result["bad"] == []
 
 
@@ -142,3 +149,42 @@ def test_ocid_and_osd_score_without_cv2_or_pil(tmp_path):
         assert result[name]["images"] == len(want) == 2
         assert result[name]["labels"] == [int(want[i]["label"].max()) for i in range(2)]
         assert 0.0 <= result[name]["F"] <= 1.0
+
+
+NO_CV2_TOD = """
+import pickle, sys
+sys.modules["cv2"] = None
+sys.modules["PIL"] = None
+from unseenobjectswithmeanshift_torch.data.datasets import TableTopObject
+out = []
+for syn_crop in (False, True):
+    ds = TableTopObject(sys.argv[1], "train", syn_crop=syn_crop, sampling=True,
+                        sampling_num=200, seed=5)
+    out += [ds[i] for i in range(len(ds))]
+sys.stdout.buffer.write(pickle.dumps(out))
+"""
+
+
+def test_tod_training_reads_without_cv2_or_pil(tmp_path):
+    import pickle
+
+    import numpy as np
+
+    from torch_eval_cases import write_tod_tree
+    from unseenobjectswithmeanshift_tpu.data.datasets import TableTopObject
+
+    tod = write_tod_tree(tmp_path / "tod", np.random.RandomState(6), splits=("training_set",))
+    out = subprocess.run([sys.executable, "-c", NO_CV2_TOD, tod], cwd=REPO, env=_env(),
+                         capture_output=True, timeout=300)
+    assert out.returncode == 0, out.stderr.decode()
+    got = pickle.loads(out.stdout)
+    want = []
+    for syn_crop in (False, True):
+        ds = TableTopObject(tod, "train", syn_crop=syn_crop, sampling=True, sampling_num=200,
+                            seed=5)
+        want += [ds[i] for i in range(len(ds))]
+    assert len(got) == len(want) == 12
+    for g, w in zip(got, want):
+        assert g["file_name"] == w["file_name"]
+        for k in ("image", "xyz", "label"):
+            assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k

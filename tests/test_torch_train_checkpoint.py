@@ -6,8 +6,10 @@
   ``build_two_stage_predictor(checkpoint=...)``.
 - The CLI trains, writes checkpoint_<step>.pth and metrics.jsonl, and
   resumes from --output; what is not ported raises a ValueError naming its
-  ROADMAP item (evaluation during training runs since the readers and the
-  metric are ported: tests/test_torch_eval_cli.py).
+  ROADMAP item, and --dataset tabletop_object (ported: its runs are in
+  tests/test_torch_train_net.py) asks for its --root (evaluation during
+  training runs since the readers and the metric are ported:
+  tests/test_torch_eval_cli.py).
 """
 
 import json
@@ -66,8 +68,8 @@ def test_cli_trains_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dataset", "tabletop_object"], "item 12"), (["--devices", "2"], "item 13"),
-    (["--dataset", "tabletop_object", "--eval-period", "5"], "item 12")])
+    (["--dataset", "tabletop_object"], "--root is required"), (["--devices", "2"], "item 13"),
+    (["--dataset", "tabletop_object", "--eval-period", "5"], "--root is required")])
 def test_cli_refuses_what_is_not_ported(flags, item):
     with pytest.raises(ValueError, match=item):
         train_msmformer.check_args(train_msmformer.parse_args(flags))

@@ -119,20 +119,21 @@ def write_osd_tree(root, rng, h=48, w=64, frames=2, disparity=False):
     return str(root)
 
 
-def write_tod_tree(root, rng, h=48, w=64, scenes=1):
-    """TOD test_set layout: scene_*/rgb_*.jpeg, depth_*.png (uint16 mm),
+def write_tod_tree(root, rng, h=48, w=64, scenes=1, splits=("test_set",)):
+    """TOD layout: <split>/scene_*/rgb_*.jpeg, depth_*.png (uint16 mm),
     segmentation_*.png (8-bit grey, table 1), 7 views a scene."""
     import cv2
 
-    for s in range(scenes):
-        d = Path(root) / "test_set" / f"scene_{s:05d}"
-        d.mkdir(parents=True)
-        for v in range(7):
-            bgr, label, xyz = random_scene(rng, h, w)
-            cv2.imwrite(str(d / f"rgb_{v:05d}.jpeg"), bgr)
-            cv2.imwrite(str(d / f"depth_{v:05d}.png"),
-                        np.nan_to_num(xyz[..., 2] * 1000).astype(np.uint16))
-            cv2.imwrite(str(d / f"segmentation_{v:05d}.png"), label)
+    for split in splits:
+        for s in range(scenes):
+            d = Path(root) / split / f"scene_{s:05d}"
+            d.mkdir(parents=True)
+            for v in range(7):
+                bgr, label, xyz = random_scene(rng, h, w)
+                cv2.imwrite(str(d / f"rgb_{v:05d}.jpeg"), bgr)
+                cv2.imwrite(str(d / f"depth_{v:05d}.png"),
+                            np.nan_to_num(xyz[..., 2] * 1000).astype(np.uint16))
+                cv2.imwrite(str(d / f"segmentation_{v:05d}.png"), label)
     return str(root)
 
 

@@ -12,9 +12,9 @@ run two-stage inference per image and save '-label.png' outputs.
 The flags are the JAX demo's, plus --device (default cuda) and --preset (the
 same as --config). A checkpoint is a
 reference .pth or an .npz written by scripts/export_release_npz.py; without
-one the networks have random weights (a pipeline smoke run). cv2 is imported
-inside ``main``: the card machine has none, and ``label_frame``, the
-per-frame function, needs none.
+one the networks have random weights (a pipeline smoke run). Images are
+read and the label PNGs written by ``utils/image_io`` (PNG and JPEG without
+cv2, which the card machine lacks).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..pipeline.factory import build_two_stage_predictor
+from ..utils.image_io import write_png
 from ..utils.preprocess import fov_intrinsics, pad_to_multiple, read_sample
 
 
@@ -86,8 +87,6 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    import cv2
-
     color_files = sorted(glob.glob(os.path.join(args.imgdir, "*color*")))
     depth_files = sorted(glob.glob(os.path.join(args.imgdir, "*depth*")))
     params_file = args.camera_params or os.path.join(args.imgdir, "camera_params.json")
@@ -113,7 +112,7 @@ def main(argv=None):
         print(f"{os.path.basename(cf)}: {ms:.1f} ms, {len(np.unique(refined)) - 1} instances")
         # binary label image (ref: get_network_crop.py save_data)
         label_save = (np.clip(refined, 0, 1) * 255).astype(np.uint8)
-        cv2.imwrite(os.path.join(out_dir, os.path.basename(cf)[:-4] + "-label.png"), label_save)
+        write_png(os.path.join(out_dir, os.path.basename(cf)[:-4] + "-label.png"), label_save)
     print("done")
 
 

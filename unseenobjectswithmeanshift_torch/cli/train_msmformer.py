@@ -1,15 +1,23 @@
-"""MSMFormer training CLI on synthetic tabletop scenes rendered on the card.
+"""MSMFormer training CLI on tabletop scenes: TOD files, or synthetic scenes
+rendered on the card.
 
 Port of ``unseenobjectswithmeanshift_tpu.cli.train_msmformer`` (ref:
 MSMFormer/tabletop_train_net_pretrained.py: AdamW lr 1e-4, batch 4, backbone
 lr x0.1, clip 0.01, deep supervision):
 
   python -m unseenobjectswithmeanshift_torch.cli.train_msmformer \\
-      --dataset synthetic --iters 9000 --batch 4 --output out/ \\
+      --dataset synthetic|tabletop_object [--root TOD] --iters 9000 --batch 4 \\
+      --output out/ \\
       [--crop] [--bf16] [--embedding-loss] [--scene-style ocid] \\
       [--init-backbone ucn.pth] [--checkpoint-period N] [--log-period N] \\
       [--eval-period N --eval-samples 8]
 
+--dataset tabletop_object (JAX ``cli/train_msmformer.py:115-121``) reads the
+TOD training split through ``data/datasets.TableTopObject`` (augmentations
+on, seed 0; SYN_CROP 224^2 crops with --crop) and ``data/loader.BatchLoader``
+(one producer thread, pinned copies), pass after pass; a resumed run starts
+a fresh pass (the readers' random states are not in the checkpoint).
+--dataset synthetic renders the scenes on the card, batch i at step i.
 --crop trains the 224x224 crop network (SYN_CROP: whole scenes rendered at
 480x640, one object's padded square crop each). The run resumes from the
 newest checkpoint_<step>.pth in --output when there is one (--fresh
@@ -17,15 +25,15 @@ ignores it) and appends {"kind": "train", "iter": ...} records to
 <output>/metrics.jsonl every --log-period steps. With --eval-period N
 (JAX ``cli/train_msmformer.py:148-200``; the reference's TEST.EVAL_PERIOD)
 every N steps the network labels --eval-samples held-out clean scenes
-(image_set "test", no augmentation, rendered once on the card) through
+(image_set "test", no augmentation: rendered once on the card, or the first
+samples of TOD's test split read with seed 1, JAX :172-176) through
 ``stage1_labels``, scores them with ``multilabel_metrics``, prints the
 metric block and appends a {"kind": "eval", "iter": ...} record. A checkpoint serves with
 ``build_two_stage_predictor(checkpoint=...)`` (the whole-image network) or
 ``checkpoint_crop=`` (the crop network).
 
-Not ported yet, each refused with a ValueError naming its ROADMAP item: the
-file-based datasets (--dataset tabletop_object, item 12) and training on
-more than one card (item 13).
+Not ported yet, refused with a ValueError naming its ROADMAP item: training
+on more than one card (item 13).
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import time
 import torch
 
 from ..config import get_config
+from ..data.datasets import TableTopObject
+from ..data.loader import BatchLoader
 from ..data.synthetic_device import SyntheticDeviceLoader
 from ..pipeline.two_stage import stage1_labels
 from ..train.trainer import Trainer
@@ -78,9 +88,8 @@ def parse_args(argv=None):
 
 def check_args(args):
     """Raises ValueError for what the port does not run yet."""
-    if args.dataset != "synthetic":
-        raise ValueError(f"--dataset {args.dataset}: the file-based dataset readers are not "
-                         "ported (ROADMAP queue 1 item 12); use --dataset synthetic")
+    if args.dataset == "tabletop_object" and not args.root:
+        raise ValueError("--root is required for --dataset tabletop_object")
     if args.devices != 1:
         raise ValueError(f"--devices {args.devices}: data-parallel training is not ported "
                          "(ROADMAP queue 1 item 13)")
@@ -110,6 +119,13 @@ def build(args):
                              f"(first: {missing[0]})")
         trainer.model.load_state_dict(sd, strict=False)
         print(f"initialized the UCN backbone from {args.init_backbone}")
+    if args.dataset == "tabletop_object":
+        dataset = TableTopObject(args.root, "train", syn_crop=args.crop, crop_size=224, seed=0)
+        if len(dataset) < args.batch:
+            raise ValueError(f"{len(dataset)} samples under {args.root} make no batch of "
+                             f"{args.batch}")
+        return trainer, BatchLoader(dataset, args.batch, max_gt=cfg.loss.max_gt_instances,
+                                    device=args.device)
     loader = SyntheticDeviceLoader(
         args.batch, height=hw[0], width=hw[1], max_gt=cfg.loss.max_gt_instances,
         seed=0, syn_crop=args.crop, crop_size=hw[0], scene_style=args.scene_style,
@@ -117,11 +133,31 @@ def build(args):
     return trainer, loader
 
 
+def train_batches(args, trainer, loader):
+    """The batches of the steps still to take: the synthetic stream's batch
+    at each step, or pass after pass of the file loader."""
+    if args.dataset == "synthetic":
+        while True:
+            yield loader.batch_at(trainer.step)
+    while True:
+        yield from loader
+
+
 def eval_scenes(args, cfg, hw):
-    """The held-out evaluation scenes, rendered once on the card: scene i of
-    the "test" split, clean (no augmentation), as the JAX CLI renders them
-    one at a time. -> [(image [1, H, W, 3], xyz [1, H, W, 3], label [H, W]
-    int32 numpy)]."""
+    """The held-out evaluation scenes: scene i of the "test" split, clean
+    (no augmentation), rendered once on the card as the JAX CLI renders them
+    one at a time, or with --dataset tabletop_object the first samples of
+    TOD's test split read with seed 1. -> [(image [1, H, W, 3], xyz
+    [1, H, W, 3], label [H, W] int32 numpy)]."""
+    if args.dataset == "tabletop_object":
+        val = TableTopObject(args.root, "test", syn_crop=args.crop, crop_size=224, seed=1,
+                             use_augmentation=False, chromatic=False, add_noise=False)
+        scenes = []
+        for i in range(min(args.eval_samples, len(val))):
+            s = val[i]
+            scenes.append((torch.from_numpy(s["image"][None]).to(args.device),
+                           torch.from_numpy(s["xyz"][None]).to(args.device), s["label"]))
+        return scenes
     vload = SyntheticDeviceLoader(
         1, height=hw[0], width=hw[1], max_gt=cfg.loss.max_gt_instances, image_set="test",
         seed=0, augment=False, syn_crop=args.crop, crop_size=hw[0],
@@ -164,10 +200,11 @@ def main(argv=None):
         print(f"resumed from {latest} (step {trainer.step})")
     log_path = os.path.join(args.output, "metrics.jsonl")
     t0 = time.perf_counter()
+    batches = train_batches(args, trainer, loader)
     while trainer.step < args.iters:
         # the scene stream is indexed by the step, so a resumed run sees the
         # batches the uninterrupted one would have
-        metrics = trainer.train_step(loader.batch_at(trainer.step))
+        metrics = trainer.train_step(next(batches))
         it = trainer.step
         if it % args.log_period == 0:
             record = {k: float(v) for k, v in sorted(metrics.items())}
@@ -188,6 +225,7 @@ def main(argv=None):
         if it % args.checkpoint_period == 0 or it == args.iters:
             path = checkpoint_io.save(checkpoint_io.checkpoint_path(args.output, it), trainer)
             print(f"saved {path}", flush=True)
+    batches.close()                    # stops the file loader's producer thread
     print("training done")
 
 

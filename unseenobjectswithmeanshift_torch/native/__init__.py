@@ -1,5 +1,5 @@
 """The port's native host library (``uoms_native.cpp``), built with g++ and
-loaded with ctypes.
+loaded with ctypes (which releases the interpreter lock during each call).
 
 The source is the port's own copy of the JAX package's
 ``native/uoms_native.cpp``. It is compiled at first use into
@@ -7,9 +7,10 @@ The source is the port's own copy of the JAX package's
 covers the source and the flags, as ``ops/_build.py`` keys the CUDA
 libraries), never beside the source. Nothing falls back: the readers and
 the metric always call it, and a failed build raises with g++'s output. The
-plain twins in ``utils/evaluation.py``, ``data/pcd.py`` and
-``utils/image_io.py`` (``backend="numpy"`` of the functions there) are what
-the tests hold it against. Nothing here runs at import time.
+plain twins in ``utils/evaluation.py``, ``data/pcd.py``, ``utils/image_io.py``,
+``utils/jpeg.py`` and ``data/image_ops.py`` (``backend="numpy"`` of the
+functions there) are what the tests hold it against. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -85,6 +86,25 @@ def get_lib() -> ctypes.CDLL:
     lib.lzf_decompress.restype = c.c_int64
     lib.png_unfilter.argtypes = [u8, c.c_int64, c.c_int64, c.c_int, u8]
     lib.png_unfilter.restype = c.c_int64
+    i32 = np.ctypeslib.ndpointer(np.int32, flags="C")
+    f32 = np.ctypeslib.ndpointer(np.float32, flags="C")
+    f64 = np.ctypeslib.ndpointer(np.float64, flags="C")
+    lib.jpeg_header.argtypes = [u8, c.c_int64, i32, c.c_char_p, c.c_int]
+    lib.jpeg_header.restype = c.c_int
+    lib.jpeg_decode.argtypes = [u8, c.c_int64, c.c_int, u8, c.c_char_p, c.c_int]
+    lib.jpeg_decode.restype = c.c_int
+    hw = [c.c_int] * 3
+    lib.resize_linear_u8.argtypes = [u8, *hw, u8, c.c_int, c.c_int]
+    lib.resize_linear_u8.restype = None
+    lib.resize_cubic_f64.argtypes = [f64, *hw, f64, c.c_int, c.c_int]
+    lib.resize_cubic_f64.restype = None
+    for name in ("bgr_to_hls_u8", "hls_to_bgr_u8"):
+        getattr(lib, name).argtypes = [u8, c.c_int64, u8]
+        getattr(lib, name).restype = None
+    lib.filter_line_u8.argtypes = [u8, *hw, c.c_int, c.c_int, u8]
+    lib.filter_line_u8.restype = None
+    lib.ellipse_fill.argtypes = [u8, c.c_int, c.c_int, *[c.c_int] * 5, f32]
+    lib.ellipse_fill.restype = None
     _lib = lib
     return _lib
 
@@ -174,3 +194,89 @@ def png_unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
         row = -r - 1
         raise ValueError(f"PNG row {row} has unknown filter type {src[row * (stride + 1)]}")
     return out
+
+
+def jpeg_decode(data: bytes, channels: int = 3) -> np.ndarray:
+    """A baseline JPEG file as cv2.imread gives it: [H, W, 3] BGR uint8
+    (channels 3) or [H, W] luma (channels 1). Raises ValueError naming what
+    the file holds that the decoder does not decode (progressive, lossless,
+    arithmetic coding, 12-bit samples, 2 or 4 components) or what is corrupt."""
+    lib = get_lib()
+    src = np.frombuffer(data, np.uint8)
+    info = np.zeros(3, np.int32)
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_header(src, src.size, info, err, 256) != 0:
+        raise ValueError(err.value.decode())
+    h, w = int(info[0]), int(info[1])
+    out = np.empty((h, w, channels) if channels == 3 else (h, w), np.uint8)
+    if lib.jpeg_decode(src, src.size, channels, out, err, 256) != 0:
+        raise ValueError(err.value.decode())
+    return out
+
+
+def _hwc(img, dtype, *out_hw):
+    """(C-contiguous array, H, W, C) of an [H, W] or [H, W, C] image; raises
+    on an empty image or output size."""
+    a = np.ascontiguousarray(img, dtype=dtype)
+    if a.ndim not in (2, 3) or 0 in a.shape or any(int(n) < 1 for n in out_hw):
+        raise ValueError(f"an [H, W] or [H, W, C] image with no empty side and an output "
+                         f"size of at least 1x1, got {a.shape} -> {out_hw}")
+    return a, a.shape[0], a.shape[1], (a.shape[2] if a.ndim == 3 else 1)
+
+
+def resize_linear_u8(img, dh: int, dw: int) -> np.ndarray:
+    """cv2.resize(img, (dw, dh)) (INTER_LINEAR) of uint8 [H, W] or [H, W, C]."""
+    a, h, w, c = _hwc(img, np.uint8, dh, dw)
+    out = np.empty((dh, dw) + a.shape[2:], np.uint8)
+    get_lib().resize_linear_u8(a, h, w, c, out, dh, dw)
+    return out
+
+
+def resize_cubic_f64(img, dh: int, dw: int) -> np.ndarray:
+    """cv2.resize(img, (dw, dh), interpolation=INTER_CUBIC) of float64 [H, W(, C)]."""
+    a, h, w, c = _hwc(img, np.float64, dh, dw)
+    out = np.empty((dh, dw) + a.shape[2:], np.float64)
+    get_lib().resize_cubic_f64(a, h, w, c, out, dh, dw)
+    return out
+
+
+def _pixels(img, fn):
+    a = np.ascontiguousarray(img, dtype=np.uint8)
+    if a.shape[-1] != 3:
+        raise ValueError(f"three channels expected, got shape {a.shape}")
+    out = np.empty_like(a)
+    fn(a, a.size // 3, out)
+    return out
+
+
+def bgr_to_hls_u8(img) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_BGR2HLS) of uint8 [..., 3]."""
+    return _pixels(img, get_lib().bgr_to_hls_u8)
+
+
+def hls_to_bgr_u8(img) -> np.ndarray:
+    """cv2.cvtColor(img, COLOR_HLS2BGR) of uint8 [..., 3]."""
+    return _pixels(img, get_lib().hls_to_bgr_u8)
+
+
+def filter_line_u8(img, size: int, horizontal: bool) -> np.ndarray:
+    """cv2.filter2D(img, -1, k / size) of uint8 [H, W(, C)], k a size x size
+    kernel of ones on its middle row (horizontal) or middle column."""
+    a, h, w, c = _hwc(img, np.uint8)
+    if size < 1 or size % 2 == 0:
+        raise ValueError(f"the line kernel's size must be odd and positive, got {size}")
+    out = np.empty_like(a)
+    get_lib().filter_line_u8(a, h, w, c, int(size), int(bool(horizontal)), out)
+    return out
+
+
+def ellipse_fill(mask: np.ndarray, center, axes, angle: int, sin_table: np.ndarray) -> None:
+    """In place: mask (uint8 [H, W], C-contiguous) set to 1 where
+    cv2.ellipse(mask, center, axes, angle, 0, 360, 1, -1) draws."""
+    if mask.dtype != np.uint8 or mask.ndim != 2 or not mask.flags["C_CONTIGUOUS"]:
+        raise ValueError("ellipse_fill draws into a C-contiguous uint8 [H, W] mask")
+    if len(sin_table) != 451:
+        raise ValueError(f"cv2's sine table has 451 entries, got {len(sin_table)}")
+    get_lib().ellipse_fill(mask, mask.shape[0], mask.shape[1], int(center[0]), int(center[1]),
+                           int(axes[0]), int(axes[1]), int(angle),
+                           np.ascontiguousarray(sin_table, dtype=np.float32))

@@ -1,5 +1,5 @@
 """Image files without cv2 or PIL: a PNG decoder and encoder on zlib and
-numpy, and the readers' two calls.
+numpy, baseline JPEG (``utils/jpeg.py``), and the readers' two calls.
 
 The JAX readers read images with ``cv2.imread`` and label files with
 ``np.array(PIL.Image.open(path))`` (JAX ``data/datasets.py:38-42``). The
@@ -18,9 +18,9 @@ card machine has neither package, so the port decodes PNG itself:
 ``imread(path, flags)`` returns what ``cv2.imread`` returns for the two
 modes the readers use, ``imread_indexed(path)`` what the JAX
 ``imread_indexed`` returns. The format is told by the file's content; JPEG
-content goes to cv2, imported inside ``imread`` (the TOD colour images are
-JPEG). ``encode_png`` / ``write_png`` write any of the decoded formats with
-a chosen filter per row.
+content (the TOD colour images) is decoded by ``utils/jpeg.decode_jpeg``
+as cv2 decodes it. ``encode_png`` / ``write_png`` write any of the decoded
+formats with a chosen filter per row.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import zlib
 import numpy as np
 
 from .. import native
+from .jpeg import decode_jpeg
 
 IMREAD_COLOR = 1          # cv2.IMREAD_COLOR
 IMREAD_ANYDEPTH = 2       # cv2.IMREAD_ANYDEPTH
@@ -200,20 +201,22 @@ def png_as_cv2(png: PNG, flags: int):
 
 
 def imread(path, flags: int = IMREAD_COLOR):
-    """cv2.imread(path, flags) for PNG files without cv2; None if the file
-    does not exist (as cv2). JPEG content is decoded by cv2, imported here."""
+    """cv2.imread(path, flags) for PNG and baseline JPEG files without cv2;
+    None if the file does not exist (as cv2). A JPEG read with
+    IMREAD_ANYDEPTH gives its luma, as cv2's one-channel read."""
     data = _read(path)
     if data is None:
         return None
     if data.startswith(PNG_SIGNATURE):
         return png_as_cv2(decode_png(data), flags)
     if data.startswith(JPEG_SIGNATURE):
+        if flags not in (IMREAD_COLOR, IMREAD_ANYDEPTH):
+            raise ValueError(f"imread flags {flags}: IMREAD_COLOR (1) and IMREAD_ANYDEPTH (2) "
+                             "are supported")
         try:
-            import cv2
-        except ImportError as e:
-            raise ImportError(f"{path} is a JPEG file: decoding it needs cv2 (opencv-python), "
-                              "which is not installed; the PNG readers need none") from e
-        return cv2.imdecode(np.frombuffer(data, np.uint8), flags)
+            return decode_jpeg(data, 3 if flags == IMREAD_COLOR else 1)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
     raise ValueError(f"{path}: neither PNG nor JPEG content")
 
 

@@ -4,8 +4,8 @@ reading a sample from disk.
 Port of ``unseenobjectswithmeanshift_tpu.utils.preprocess`` (ref:
 lib/fcn/get_network_crop.py:114-153; lib/datasets/tabletop_dataset.py:395-396;
 detectron2 ImageList.from_tensors pads bottom/right with zeros). Tensors in,
-tensors out, NHWC. ``read_sample`` imports cv2 when it is called: the card
-machine has no cv2, and nothing else here needs it.
+tensors out, NHWC. ``read_sample`` reads PNG and JPEG through
+``utils/image_io`` (no cv2, which the card machine lacks).
 """
 
 from __future__ import annotations
@@ -71,14 +71,14 @@ def read_sample(color_path: str, depth_path=None, camera_params=None, input_type
     BGR, 'xyz': [H, W, 3] float32 camera XYZ from the depth PNG (millimetres)
     and ``camera_params`` (fx, fy, x_offset, y_offset), or None for COLOR
     input or without a depth file}, as tensors on ``device``."""
-    import cv2
+    from .image_io import IMREAD_ANYDEPTH, imread
 
-    im = cv2.imread(color_path)                        # BGR uint8
+    im = imread(color_path)                            # BGR uint8
     if im is None:
         raise FileNotFoundError(f"cannot read {color_path}")
     sample = {"image": normalize_image_ucn(torch.from_numpy(im).to(device)), "xyz": None}
     if input_type in ("DEPTH", "RGBD") and depth_path is not None:
-        depth = cv2.imread(depth_path, cv2.IMREAD_ANYDEPTH)
+        depth = imread(depth_path, IMREAD_ANYDEPTH)
         if depth is None:
             raise FileNotFoundError(f"cannot read {depth_path}")
         depth_m = torch.from_numpy(depth.astype(np.float32) / 1000.0).to(device)
