@@ -198,6 +198,27 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             stage-1 labels of each scene scored by multilabel_metrics, with
             at least one object detected.
 
+28-31. jpeg_check, augment_check, train_files_main, demo_cli: training on
+            files (see their functions).
+32. uoais_check  with cv2 and PIL still unimportable: a scene of the host
+            renderer (SyntheticTabletopDataset, render_scene_numpy) equal
+            (sha256) with the native and the numpy cubic mottle; Telea
+            native equal to its numpy twin on the scene's 480x640 depth with
+            dropout holes (ms of each); inpaint_depth at factor 2, the
+            dilation, 60 polygons (half clipped) and the float32 cubic
+            resize equal in both backends.
+33. uoais_main  16 host-rendered scenes (four batches) written as
+            OCID-UOAIS, OSD-UOAIS and UOAIS-Sim (RLE and polygon
+            annotations) trees; every sample read back equal to its frame
+            with its depth filled (reader and Telea ms a frame);
+            cli.test_net.evaluate with decisive uoais_ucn weights on both
+            trees (6 + 6 cross-attention launches a batch) and the decisive
+            UCN pipeline on OCID-UOAIS (1 + 1 FPS and connected-components
+            launches a batch); stage 2 only where crops are present, at
+            least one such batch each; then
+            cli.test_net.main through its argv on both trees and with
+            --ucn (random weights; launches counted).
+
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure ends the run with a
 traceback and a non-zero exit code. Without CUDA the script fails at once.
@@ -3671,6 +3692,288 @@ def train_eval_phase():
     return {"evals": evals, "seconds": seconds, "decisive": decisive}
 
 
+# ---- 32-33: the UOAIS readers and the host renderer, without cv2 or PIL
+
+UOAIS_SCENES, UOAIS_BATCH = 16, 4
+
+
+def host_scenes(n, seed=0):
+    """n scenes of SyntheticTabletopDataset (scene_style "ocid", test split)
+    rendered on the host by render_scene_numpy at EVAL_HW (one to three
+    seconds each), each given the depth dropout of the augmentation:
+    ([(bgr uint8, label int32 objects 1.. / 0, table bool, depth m float32
+    with 0 holes)], dataset, scene params)."""
+    from unseenobjectswithmeanshift_torch.data import augmentation as aug
+    from unseenobjectswithmeanshift_torch.data.datasets import remap_labels
+    from unseenobjectswithmeanshift_torch.data.synthetic import (
+        SyntheticTabletopDataset, render_scene_numpy,
+    )
+
+    h, w = EVAL_HW
+    ds = SyntheticTabletopDataset(num_scenes=n, image_set="test", height=h, width=w, seed=seed,
+                                  scene_style="ocid")
+    params = [ds.scene_params(i) for i in range(n)]
+    frames = [render_scene_numpy(p, h, w, ds.intrinsics) for p in params]
+    rng = np.random.RandomState(seed)
+    out = []
+    for rgb, depth, ids in frames:
+        label = remap_labels(ids)
+        holed = aug.dropout_random_ellipses(depth, rng=rng)
+        out.append(((rgb[..., ::-1] * 255).astype(np.uint8), label, (ids == 0) & (depth > 0),
+                    holed.astype(np.float32)))
+    return out, ds, params
+
+
+def uoais_check_phase():
+    """32. the UOAIS readers' host operations against their numpy twins at
+    480x640, with cv2 and PIL unimportable: Telea on rendered depth with
+    dropout holes, inpaint_depth, the polygon fill (clipped polygons
+    included), the dilation, the float32 cubic resize and the host
+    renderer's frames."""
+    import hashlib
+
+    from unseenobjectswithmeanshift_torch.data import image_ops, uoais
+    from unseenobjectswithmeanshift_torch.data.synthetic import render_scene_numpy
+
+    h, w = EVAL_HW
+    res = {}
+    t0 = time.perf_counter()
+    scenes, ds, params = host_scenes(1, seed=5)
+    res["render_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twin = render_scene_numpy(params[0], h, w, ds.intrinsics, backend="numpy")
+    res["render_twin_s"] = time.perf_counter() - t0
+    native = render_scene_numpy(params[0], h, w, ds.intrinsics)
+    digests = [[hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16] for a in f]
+               for f in (native, twin)]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"uoais_check: host renderer frames differ between the native "
+                             f"and the numpy cubic mottle: {digests}")
+    res["frame_sha256"] = digests[0]
+    _, label, _, depth = scenes[0]
+    assert np.array_equal(label > 0, native[2] > 0)
+    d3 = uoais.normalize_depth(depth * 1000)
+    mask = np.all(d3 == 0, axis=2).astype(np.uint8)
+    res["holes"] = int(mask.sum())
+    assert res["holes"] > 0, "uoais_check: the dropout made no hole"
+    res["telea_ms"] = host_ms(lambda: image_ops.inpaint_telea(d3, mask, 3), reps=5)
+    t0 = time.perf_counter()
+    got = image_ops.inpaint_telea(d3, mask, 3, backend="numpy")
+    res["telea_twin_s"] = time.perf_counter() - t0
+    if not np.array_equal(image_ops.inpaint_telea(d3, mask, 3), got):
+        raise AssertionError("uoais_check: native Telea differs from its numpy twin")
+    filled = got[mask > 0]
+    assert (filled > 0).mean() > 0.9, "uoais_check: Telea left holes empty"
+    for factor, dilate in ((2, True), (2, False)):
+        if not np.array_equal(uoais.inpaint_depth(d3, factor, dilate=dilate),
+                              uoais.inpaint_depth(d3, factor, dilate=dilate, backend="numpy")):
+            raise AssertionError(f"uoais_check: inpaint_depth(factor={factor}, dilate={dilate}) "
+                                 "native differs from numpy")
+    rng = np.random.RandomState(5)
+    for k in (3, 5):
+        assert np.array_equal(image_ops.dilate_u8(mask, k), image_ops.dilate_u8(mask, k, "numpy"))
+    polys = 0
+    for c in range(60):
+        n = rng.randint(1, 24)
+        lo, hi = ((-w // 2, -h // 2), (w + w // 2, h + h // 2)) if c % 2 else ((0, 0), (w, h))
+        pts = np.stack([rng.randint(lo[0], hi[0], n), rng.randint(lo[1], hi[1], n)], 1)
+        a = image_ops.fill_poly(np.zeros((h, w), np.uint8), pts, 1)
+        b = image_ops.fill_poly(np.zeros((h, w), np.uint8), pts, 1, backend="numpy")
+        if not np.array_equal(a, b):
+            raise AssertionError(f"uoais_check: fill_poly native differs from numpy on {pts}")
+        polys += 1
+    res["polygons"] = polys
+    for shape, out_hw in (((12, 16), (h, w)), ((37, 23, 3), (61, 90)), ((9, 5), (4, 3))):
+        m = rng.rand(*shape).astype(np.float32)
+        if not np.array_equal(image_ops.resize_cubic_f32(m, *out_hw),
+                              image_ops.resize_cubic_f32(m, *out_hw, backend="numpy")):
+            raise AssertionError(f"uoais_check: resize_cubic_f32 {shape} -> {out_hw} differs")
+    sync_print(f"uoais_check: host renderer frame (rgb, depth, label) sha256 {res['frame_sha256']} "
+               f"equal with the native and the numpy cubic mottle (render {res['render_s']:.2f} s, "
+               f"{res['render_twin_s']:.2f} s with the twin); Telea native == numpy "
+               f"twin on {h}x{w} depth with {res['holes']} hole pixels (native "
+               f"{res['telea_ms']:.2f} ms, twin {res['telea_twin_s']:.2f} s); inpaint_depth "
+               f"factor 2 with and without dilation, dilation 3x3 / 5x5, {polys} polygons "
+               f"(half clipped) and three cubic resizes equal in both backends [{CARD}; host CPU]")
+    return res
+
+
+def write_uoais_trees(d, scenes):
+    """OCID-UOAIS (rgb/, paletted label/ with table 1 (and floor 2), depth/
+    uint16 mm; half the frames in a 'table' sequence), OSD-UOAIS
+    (image_color/, annotation/, disparity/ mm) and UOAIS-Sim (color/,
+    depth/ in 0.1 mm, coco.json: even objects as RLE, odd ones as a
+    polygon: their box's corners pulled in, one crossing the border) from
+    the same scenes. -> (roots, {file_name: expected (image, label)})."""
+    from unseenobjectswithmeanshift_torch.config import COCO_PIXEL_MEAN_RGB, COCO_PIXEL_STD_RGB
+    from unseenobjectswithmeanshift_torch.data import image_ops
+    from unseenobjectswithmeanshift_torch.data.datasets import normalize_bgr, remap_labels
+    from unseenobjectswithmeanshift_torch.data.uoais import rle_encode
+    from unseenobjectswithmeanshift_torch.utils.image_io import write_png
+
+    h, w = EVAL_HW
+    palette = (np.arange(256 * 3) * 37 % 256).astype(np.uint8)
+    roots = {k: os.path.join(d, k) for k in ("OCID", "OSD", "SIM")}
+    expected, images, anns = {}, [], []
+    coco = lambda bgr: ((bgr[..., ::-1].astype(np.float32) - np.asarray(
+        COCO_PIXEL_MEAN_RGB, np.float32)) / np.asarray(COCO_PIXEL_STD_RGB, np.float32))
+    for k, (bgr, label, table, depth) in enumerate(scenes):
+        mm = np.round(depth * 1000).astype(np.uint16)
+        on_table = k < len(scenes) // 2
+        seq = os.path.join(roots["OCID"], "ARID20", "table", "top", "seq01") if on_table else \
+            os.path.join(roots["OCID"], "ARID10", "floor", "bottom", "seq02")
+        name = f"result_2018-08-20-10-{k:02d}.png"
+        png = np.where(label > 0, label + (2 if on_table else 1),
+                       np.where(table, 1, 2 if on_table else 0))
+        for sub, img, pal in (("rgb", bgr[..., ::-1], None), ("label", png.astype(np.uint8),
+                                                               palette), ("depth", mm, None)):
+            os.makedirs(os.path.join(seq, sub), exist_ok=True)
+            write_png(os.path.join(seq, sub, name), img, palette=pal)
+        expected[os.path.join(seq, "rgb", name)] = (coco(bgr), remap_labels(label))
+        for sub, img, pal in (("image_color", bgr[..., ::-1], None),
+                              ("annotation", label.astype(np.uint8), palette),
+                              ("disparity", mm, None)):
+            os.makedirs(os.path.join(roots["OSD"], sub), exist_ok=True)
+            write_png(os.path.join(roots["OSD"], sub, f"learn{k}.png"), img, palette=pal)
+        expected[os.path.join(roots["OSD"], "image_color", f"learn{k}.png")] = (
+            normalize_bgr(bgr), remap_labels(label))
+        for sub in ("color", "depth"):
+            os.makedirs(os.path.join(roots["SIM"], sub), exist_ok=True)
+        write_png(os.path.join(roots["SIM"], "color", f"{k}.png"), bgr[..., ::-1])
+        write_png(os.path.join(roots["SIM"], "depth", f"{k}.png"),
+                  np.clip(np.round(depth * 10000), 0, 65535).astype(np.uint16))
+        images.append({"id": k, "height": h, "width": w, "file_name": f"color/{k}.png",
+                       "depth_file_name": f"depth/{k}.png"})
+        sim = np.zeros((h, w), np.int32)
+        for obj in range(1, int(label.max()) + 1):
+            m = label == obj
+            if obj % 2 == 0:
+                seg = rle_encode(m)
+                ann_mask = m
+            else:
+                ys, xs = np.nonzero(m)
+                x0, x1, y0, y1 = xs.min(), xs.max(), ys.min(), ys.max()
+                cx, cy = (x0 + x1) / 2, (y0 + y1) / 2
+                poly = [x0 + 0.25, y0 + 0.4, cx, cy - 0.2 * (y1 - y0), x1 - 0.5, y0,
+                        x1, h + 25.3 if obj == 1 else y1, x0 - 0.5, y1]
+                poly = [float(v) for v in poly]
+                seg = [poly]
+                pts = np.round(np.asarray(poly, np.float64).reshape(-1, 2)).astype(np.int32)
+                ann_mask = image_ops.fill_poly(np.zeros((h, w), np.uint8), pts, 1,
+                                               backend="numpy") > 0
+            anns.append({"image_id": k, "segmentation": seg})
+            sim[ann_mask] = obj
+        expected[os.path.join(roots["SIM"], "color", f"{k}.png")] = (normalize_bgr(bgr), sim)
+    with open(os.path.join(roots["SIM"], "coco.json"), "w") as fh:
+        json.dump({"images": images, "annotations": anns}, fh)
+    return roots, expected
+
+
+def check_uoais_reads(tag, dataset, expected):
+    """Every sample equals the frame written (image, labels), with a
+    [480, 640, 3] float32 depth in [0, 1] and no zero pixel left. -> (n,
+    ms a frame)."""
+    t0 = time.perf_counter()
+    samples = [dataset[i] for i in range(len(dataset))]
+    ms = (time.perf_counter() - t0) * 1e3 / len(samples)
+    for s in samples:
+        image, label = expected[s["file_name"]]
+        x = s["xyz"]
+        if not (np.array_equal(s["image"], image) and np.array_equal(s["label"], label)):
+            raise AssertionError(f"{tag} {s['file_name']}: the reader's sample differs from "
+                                 "the frame written")
+        if not (x.shape == (*EVAL_HW, 3) and x.dtype == np.float32 and 0 <= x.min()
+                and x.max() <= 1 and (x > 0).all()):
+            raise AssertionError(f"{tag} {s['file_name']}: depth {x.shape} {x.dtype} not "
+                                 "filled in [0, 1]")
+    return len(samples), ms
+
+
+def uoais_main_phase(results):
+    """33. OCID-UOAIS, OSD-UOAIS and UOAIS-Sim trees written from scenes the
+    host renderer draws, read back through the port's readers (Telea,
+    polygons, no cv2 / PIL) and evaluated through cli.test_net on the card:
+    uoais_ucn MSMFormer and the UCN pipeline (--ucn, which the JAX CLI
+    serves on these readers too)."""
+    import tempfile
+
+    from unseenobjectswithmeanshift_torch.cli import test_net
+    from unseenobjectswithmeanshift_torch.data import uoais
+    from unseenobjectswithmeanshift_torch.data.datasets import get_dataset
+
+    d = tempfile.mkdtemp(prefix="uoms_uoais_")
+    while "rgb" in d or "table" in d:      # the OCID reader replaces / tests these words
+        os.rmdir(d)
+        d = tempfile.mkdtemp(prefix="uoms_uoais_")
+    try:
+        t0 = time.perf_counter()
+        scenes, _, _ = host_scenes(UOAIS_SCENES, seed=0)
+        results["render_s"] = time.perf_counter() - t0
+        roots, expected = write_uoais_trees(d, scenes)
+        results["written_s"] = time.perf_counter() - t0
+        ocid = get_dataset("ocid_object_uoais", roots["OCID"])
+        osd = get_dataset("osd_object_uoais", roots["OSD"])
+        sim = uoais.UOAISSimDataset(roots["SIM"], "coco.json")
+        reads = {}
+        for tag, ds in (("ocid_object_uoais", ocid), ("osd_object_uoais", osd),
+                        ("uoais_sim", sim)):
+            n, ms = check_uoais_reads(tag, ds, expected)
+            assert n == UOAIS_SCENES, f"{tag}: {n} samples"
+            reads[tag] = ms
+        results["read_ms_per_frame"] = reads
+        telea = []
+        for _, _, _, depth in scenes:
+            d3 = uoais.normalize_depth(depth * 1000)
+            telea.append(host_ms(lambda: uoais.inpaint_depth(d3), reps=3))
+        results["inpaint_depth_ms_per_frame"] = statistics.median(telea)
+        sync_print(f"uoais_main: {UOAIS_SCENES} host-rendered scenes ({results['render_s']:.1f} s) "
+                   f"written as OCID-UOAIS, OSD-UOAIS and "
+                   f"UOAIS-Sim trees in {results['written_s']:.1f} s; every sample read back "
+                   f"equal to its frame; reader ms a frame {reads}; inpaint_depth (Telea) "
+                   f"{results['inpaint_depth_ms_per_frame']:.2f} ms a frame [{CARD}; host CPU]")
+        xattn = {"fused_uoms_cross_attention": 6}
+        pred = decisive_predictor(preset="uoais_ucn", seed=0, device=EVAL_DEVICE)
+        results["msmformer_ocid_uoais"] = eval_run("uoais_ucn OCID-UOAIS", pred, ocid, xattn,
+                                                   xattn)
+        results["msmformer_osd_uoais"] = eval_run("uoais_ucn OSD-UOAIS", pred, osd, xattn,
+                                                  xattn, osd=True)
+        del pred
+        torch.cuda.empty_cache()
+        s = ocid[0]
+        image = torch.from_numpy(s["image"][None]).to(EVAL_DEVICE)
+        xyz = torch.from_numpy(s["xyz"][None]).to(EVAL_DEVICE)
+        ucn = decisive_ucn_predictor(image, xyz, preset="uoais_ucn", crop_preset="uoais_ucn",
+                                     seed=0, device=EVAL_DEVICE)
+        ms = {"fps_seeds": 1, "connected_components": 1}
+        results["ucn_ocid_uoais"] = eval_run("ucn OCID-UOAIS", ucn, ocid, ms, ms,
+                                             thr=ucn.cfg.test.depth_filter_threshold_ocid)
+        del ucn, image, xyz
+        torch.cuda.empty_cache()
+        for tag, argv in (("ocid_object_uoais", []), ("osd_object_uoais", []),
+                          ("ocid_object_uoais", ["--ucn"])):
+            root = roots["OCID" if tag.startswith("ocid") else "OSD"]
+            zero_counts()
+            t0 = time.perf_counter()
+            sync_print(f"uoais_main test_net.main --dataset {tag} {' '.join(argv)} (random "
+                       f"weights) [{CARD}]:")
+            r = test_net.main(["--dataset", tag, "--root", root, "--device", EVAL_DEVICE,
+                               "--batch", str(UOAIS_BATCH)] + argv)
+            counts = kernel_counts()
+            batches = -(-UOAIS_SCENES // UOAIS_BATCH)
+            need = {"fps_seeds": batches, "connected_components": batches} if argv else \
+                {"fused_uoms_cross_attention": 6 * batches}
+            for k, v in need.items():
+                assert counts[k] >= v, f"test_net.main {tag} {argv}: {counts[k]} {k} launches"
+            results[f"test_net_main_{tag}{'_ucn' if argv else ''}"] = {
+                "img_per_s": r["timing"]["img_per_s"], "launches": counts,
+                "seconds": time.perf_counter() - t0}
+    finally:
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    return results
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     p.add_argument("--weights", help="a .npz export of one MSMFormer release "
@@ -3872,6 +4175,15 @@ def main(argv=None):
         demo_cli_phase()
         torch.cuda.empty_cache()
         phase_done("demo_cli", t0)
+
+        # 32-33. the UOAIS readers and the host renderer
+        t0 = time.perf_counter()
+        uoais_results = {"check": uoais_check_phase()}
+        phase_done("uoais_check", t0)
+        t0 = time.perf_counter()
+        uoais_results["main"] = uoais_main_phase({})
+        torch.cuda.empty_cache()
+        phase_done("uoais_main", t0)
     ev = eval_results["main"]
     eval_fp32 = sum(ev[k]["launches"]["fused_uoms_cross_attention"]
                     for k in ("msmformer_ocid", "msmformer_osd"))
@@ -3879,6 +4191,10 @@ def main(argv=None):
     files_xattn = files_results["main"]["train_msmformer"]["launches"]
     files_xattn = files_xattn["fused_uoms_cross_attention"]
     served = files_results["main"]["served"]["launches"]
+    um = uoais_results["main"]
+    uoais_xattn = sum(um[k]["launches"]["fused_uoms_cross_attention"]
+                      for k in ("msmformer_ocid_uoais", "msmformer_osd_uoais"))
+    uoais_ucn = um["ucn_ocid_uoais"]["launches"]
 
     s1r = results["stage1_B1_K307200"]["separable"]
     kernels = [{
@@ -3886,9 +4202,10 @@ def main(argv=None):
         "route": "cuda",
         "source": "unseenobjectswithmeanshift_torch/csrc/fused_cross_attention.cu",
         "replaces": "unseenobjectswithmeanshift_tpu/ops/fused_cross_attention.py:334",
-        "launches": launches + r50_launches + eval_fp32 + files_xattn,
+        "launches": launches + r50_launches + eval_fp32 + files_xattn + uoais_xattn,
         "launches_by_path": {"main": launches, "r50_main": r50_launches,
-                             "eval_main": eval_fp32, "train_files_main": files_xattn},
+                             "eval_main": eval_fp32, "train_files_main": files_xattn,
+                             "uoais_main": uoais_xattn},
         "max_abs_err": max([x["max_abs_err"] for r in results.values() for x in r.values()]
                            + [r["max_abs_err"] for r in r50_results.values()]),
         "ms": s1r["ms"], "plain_ms": s1r["plain_ms"], "bound_ms": s1r["bound_ms"],
@@ -3917,9 +4234,10 @@ def main(argv=None):
             "design": design,
             "replaces": f"unseenobjectswithmeanshift_tpu/ops/pallas_mean_shift.py:{line}",
             "launches": (sum(p[name] for p in ucn_launches.values()) + eval_ucn[name]
-                         + served[name]),
+                         + served[name] + uoais_ucn[name]),
             "launches_by_path": {**{p: v[name] for p, v in ucn_launches.items()},
-                                 "eval_main": eval_ucn[name], "train_files_main": served[name]},
+                                 "eval_main": eval_ucn[name], "train_files_main": served[name],
+                                 "uoais_main": uoais_ucn[name]},
             "max_abs_err": max(r[err_key] for r in ucn_results.values()),
             "max_abs_err_of": ("gap to the fp64 argmax of the running minimum distance"
                                if name == "fps_seeds" else
@@ -3943,10 +4261,12 @@ def main(argv=None):
         "replaces": "none: no TPU kernel (the JAX package runs this sweep in XLA, "
                     "unseenobjectswithmeanshift_tpu/ops/mean_shift.py:81)",
         "launches": (sum(p["connected_components"] for p in ucn_launches.values())
-                     + eval_ucn["connected_components"] + served["connected_components"]),
+                     + eval_ucn["connected_components"] + served["connected_components"]
+                     + uoais_ucn["connected_components"]),
         "launches_by_path": {**{p: v["connected_components"] for p, v in ucn_launches.items()},
                              "eval_main": eval_ucn["connected_components"],
-                             "train_files_main": served["connected_components"]},
+                             "train_files_main": served["connected_components"],
+                             "uoais_main": uoais_ucn["connected_components"]},
         "max_abs_err": 0 if cc_results["equal"] else None,
         "max_abs_err_of": f"labels equal to the numpy sweep on {cc_results['images']} images",
         "ms": u1cc["connected_components_ms"],
@@ -4025,7 +4345,8 @@ def main(argv=None):
     print(json.dumps({"presets_main": preset_results, "grouped_towers": grouped_results,
                       "stream_main": stream_results, "stage1_no_sync": no_sync,
                       "seed_limits": seed_limits, "train": train_results,
-                      "eval": eval_results, "files": files_results}), flush=True)
+                      "eval": eval_results, "files": files_results,
+                      "uoais": uoais_results}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

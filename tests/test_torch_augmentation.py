@@ -17,6 +17,7 @@ import cv2
 import numpy as np
 import pytest
 
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import few_torch_threads  # noqa: F401
 from unseenobjectswithmeanshift_torch.data import augmentation as paug
 from unseenobjectswithmeanshift_torch.data import image_ops

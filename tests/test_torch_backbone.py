@@ -26,6 +26,7 @@ from unseenobjectswithmeanshift_torch.ops.hypersphere_attention import (
 )
 from unseenobjectswithmeanshift_torch.utils import preprocess
 from unseenobjectswithmeanshift_torch.weights import _backbone
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 
 def _perturb_bn(tree, rng):

@@ -51,6 +51,7 @@ from unseenobjectswithmeanshift_torch.weights import from_jax_variables
 from test_fused_cross_attention import make_inputs
 from test_torch_backbone import _perturb_bn
 from torch_port_cases import jax_msmformer_variables, rgbd, small_configs
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 TWIN_TOL = 2.0 ** -8        # one bf16 ulp at outputs below 1
 SURFACE_TOL, SIGN_AGREE = 0.15, 0.97

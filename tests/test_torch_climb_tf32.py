@@ -19,6 +19,7 @@ import pytest
 
 from chip_smoke import CLIMB_TOL
 from test_torch_tf32_split import mm
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 SEEDS, KAPPA, ITERS, KEYS = 100, 20.0, 10, 3000
 

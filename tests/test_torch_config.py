@@ -20,6 +20,7 @@ from unseenobjectswithmeanshift_torch import config
 from unseenobjectswithmeanshift_torch.pipeline import factory
 
 from torch_port_cases import _shrink, small_configs
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 
 @pytest.mark.parametrize("name", sorted(jax_config.PRESETS))

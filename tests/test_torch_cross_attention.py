@@ -15,6 +15,7 @@ from unseenobjectswithmeanshift_tpu.ops.fused_cross_attention import (
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
     TILE_KEYS, fused_uoms_cross_attention, fused_uoms_cross_attention_plain, launch_plan,
 )
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 # Both sides are fp32 over at most a few hundred keys; they differ only in
 # summation order, and exp(kappa * s) scales an error in s by kappa = 30.

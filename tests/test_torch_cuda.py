@@ -35,6 +35,7 @@ from unseenobjectswithmeanshift_torch.ops.pallas_attention import (
 from chip_smoke import (
     BF16_TOL, CLIMB_TOL, FPS_TOL, decisive_predictor, decisive_ucn_predictor, mask_mismatches,
 )
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

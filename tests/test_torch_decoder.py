@@ -19,6 +19,7 @@ from unseenobjectswithmeanshift_torch.models.meta_arch import MSMFormer
 from unseenobjectswithmeanshift_torch.weights import from_jax_variables, init_random
 
 from torch_port_cases import E, FF, L, MD, NH, Q, jax_msmformer_variables, rgbd, small_configs
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 # fp32 on both sides, summed in different orders (JAX at HIGHEST precision):
 # differences are ~1e-6 and reach ~1e-5 after 3 layers of kappa = 30 softmax

@@ -20,6 +20,7 @@ from unseenobjectswithmeanshift_tpu.utils import preprocess as jax_preprocess
 from unseenobjectswithmeanshift_tpu.utils.preprocess import read_sample as jax_read_sample
 from unseenobjectswithmeanshift_torch.cli import demo
 from unseenobjectswithmeanshift_torch.utils.preprocess import normalize_image_coco, read_sample
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 CAMERA = {"fx": 525.0, "fy": 525.0, "x_offset": 31.5, "y_offset": 23.5}
 

@@ -22,6 +22,7 @@ import torch
 
 from chip_smoke import decisive_predictor, decisive_ucn_predictor, train_eval_scoring
 from torch_eval_cases import shrink, write_ocid_tree, write_tod_tree
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import few_torch_threads  # noqa: F401
 from unseenobjectswithmeanshift_tpu.utils.evaluation import multilabel_metrics as jax_metrics
 from unseenobjectswithmeanshift_torch.cli import test_net, train_msmformer

@@ -19,6 +19,7 @@ from unseenobjectswithmeanshift_tpu.data import uoais as juoais
 from unseenobjectswithmeanshift_torch.data import datasets as pds
 from unseenobjectswithmeanshift_torch.data import loader as ploader
 from unseenobjectswithmeanshift_torch.data import uoais as puoais
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 
 def _all_equal(port, jax_ds):
@@ -76,16 +77,27 @@ def test_uoais_readers_equal_jax(tmp_path):
 def test_training_branches_refused_naming_item_12(tmp_path):
     """Item 12's training branches are ported (their samples are held to the
     JAX reader's in tests/test_torch_train_files.py): each constructs and
-    reads; what stays refused is the host-rendered synthetic_tabletop,
-    which names its own ROADMAP item (14)."""
+    reads. The host-rendered synthetic_tabletop, once refused, is served
+    now: its registry entry (root = the scene count) gives the JAX
+    package's samples (with augmentation off, so that IPP's cubic mottle in
+    cv2 cannot move a level; tests/test_torch_synthetic_host.py holds the
+    rest)."""
     tod = write_tod_tree(tmp_path / "tod", np.random.RandomState(3))
     assert pds.TableTopObject(tod, "test", seed=0)[0]["label"].shape == (48, 64)
     for flag in ("syn_crop", "sampling"):
         ds = pds.TableTopObject(tod, "test", use_augmentation=False, chromatic=False,
                                 add_noise=False, seed=0, **{flag: True})
         assert ds[0]["image"].shape[-1] == 3
-    with pytest.raises(ValueError, match="item 14"):
-        pds.get_dataset("synthetic_tabletop", "4")
+    kw = dict(height=48, width=64, use_augmentation=False, chromatic=False, add_noise=False)
+    port, jax_ds = pds.get_dataset("synthetic_tabletop", "4", **kw), \
+        jds.get_dataset("synthetic_tabletop", "4", **kw)
+    assert len(port) == len(jax_ds) == 4
+    for i in range(4):
+        got, want = port[i], jax_ds[i]
+        assert got["file_name"] == want["file_name"]
+        for k in ("xyz", "label"):
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+        assert np.abs(got["image"] - want["image"]).max() <= 1 / 255 + 1e-6
 
 
 def test_loader_helpers_equal_jax():

@@ -27,6 +27,7 @@ from unseenobjectswithmeanshift_tpu.data import pcd as jpcd
 from unseenobjectswithmeanshift_torch import native
 from unseenobjectswithmeanshift_torch.data import pcd as ppcd
 from unseenobjectswithmeanshift_torch.utils import image_io as io
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 BACKENDS = ["native", "numpy"]
 

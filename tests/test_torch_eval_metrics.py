@@ -11,6 +11,7 @@ import scipy.io
 
 from unseenobjectswithmeanshift_tpu.utils import evaluation as J
 from unseenobjectswithmeanshift_torch.utils import evaluation as P
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 BACKENDS = ["native", "numpy"]
 

@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     os.environ.get("UOMS_FLAGSHIP_PARITY") != "1",

@@ -19,6 +19,7 @@ from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
     CLIMB_BLOCK_TILES, CLIMB_TILE, EMBED_DIM, FPS_L2_BYTES, FPS_RED_FLOATS, FPS_REG_ROWS,
     FPS_ROWS_PER_PASS, climb_plan, fps_plan,
 )
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 SMS, SMEM_PER_BLOCK, SMEM_PER_SM, RESERVED_PER_BLOCK = 132, 232_448, 233_472, 1024
 

@@ -29,6 +29,7 @@ from unseenobjectswithmeanshift_torch.weights import (
 from test_torch_backbone import _perturb_bn
 from test_torch_decoder import assert_close
 from torch_port_cases import rgbd, small_configs
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 VARIANTS = [("COLOR", "add"), ("DEPTH", "add"), ("RGBD", "early"), ("RGBD", "add"),
             ("RGBD", "cat")]

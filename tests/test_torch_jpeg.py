@@ -22,6 +22,7 @@ from unseenobjectswithmeanshift_torch.utils.jpeg import decode_jpeg
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 SAMPLING = {"420": 0x411111, "422": 0x211111, "440": 0x121111, "444": 0x111111}
 

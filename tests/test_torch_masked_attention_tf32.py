@@ -22,6 +22,7 @@ from test_torch_tf32_split import split
 from unseenobjectswithmeanshift_torch.models.position_encoding import position_embedding_sine
 from unseenobjectswithmeanshift_torch.ops import pallas_attention as pa
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import TILE_KEYS
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 H, Q, D, E, KAPPA = 8, 100, 32, 256, 30.0
 SHARED_MEMORY_LIMIT = 232_448   # bytes of shared memory a block may use on the H100

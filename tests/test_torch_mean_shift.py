@@ -22,6 +22,7 @@ from unseenobjectswithmeanshift_tpu.ops.pallas_mean_shift import (
 )
 from unseenobjectswithmeanshift_torch.ops import mean_shift as ms
 from unseenobjectswithmeanshift_torch.ops import mean_shift_kernels as msk
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 
 def clustered_points(rng, n=600, d=64, k=5, dups=30):

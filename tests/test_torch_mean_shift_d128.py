@@ -18,6 +18,7 @@ from unseenobjectswithmeanshift_torch.ops import mean_shift as ms
 from unseenobjectswithmeanshift_torch.ops import mean_shift_kernels as msk
 
 from test_torch_mean_shift import batch
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 
 @pytest.mark.parametrize("first", [0, 500])

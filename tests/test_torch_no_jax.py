@@ -1,14 +1,14 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package, nor
-cv2 or PyYAML (the card machine has neither: the port imports cv2 only
-inside the UOAIS readers' Telea inpainting and polygon fill, and PyYAML
-inside the function that reads YAML files).
+cv2 or PyYAML (the card machine has neither: the port imports no cv2 at
+all, and PyYAML only inside the function that reads YAML files).
 
 Runs in a subprocess, because tests/conftest.py imports jax into the pytest
 process. Also checks that chip_smoke.py refuses to run without CUDA, and
 that the port reads OCID and OSD trees and scores them through
 ``cli.test_net.evaluate``, and reads TOD training samples (JPEG, every
-augmentation, SYN_CROP) equal to the JAX reader's, in a process where cv2
-and PIL cannot be imported.
+augmentation, SYN_CROP) equal to the JAX reader's, and the UOAIS readers,
+synthetic_tabletop and dataset_statistics, in a process where cv2 and PIL
+cannot be imported.
 """
 
 import functools
@@ -22,6 +22,7 @@ from pathlib import Path
 import torch
 
 import unseenobjectswithmeanshift_torch
+from torch_threads import capped_env, few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -41,7 +42,9 @@ print(json.dumps({"modules": names, "bad": bad, "lazy": lazy}))
 
 
 def _env():
-    env = dict(os.environ)
+    """The subprocesses' environment: the repository on the path, two
+    OpenMP threads (beside the other test workers)."""
+    env = capped_env()
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     return env
 
@@ -188,3 +191,63 @@ def test_tod_training_reads_without_cv2_or_pil(tmp_path):
         assert g["file_name"] == w["file_name"]
         for k in ("image", "xyz", "label"):
             assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+
+
+NO_CV2_UOAIS = """
+import contextlib, io, pickle, sys
+sys.modules["cv2"] = None
+sys.modules["PIL"] = None
+from unseenobjectswithmeanshift_torch.cli import dataset_statistics
+from unseenobjectswithmeanshift_torch.data.datasets import get_dataset
+from unseenobjectswithmeanshift_torch.data.uoais import UOAISSimDataset
+ocid, osd, sim = sys.argv[1:4]
+readers = [get_dataset("ocid_object_uoais", ocid), get_dataset("osd_object_uoais", osd),
+           UOAISSimDataset(sim, "coco.json"),
+           get_dataset("synthetic_tabletop", "2", height=48, width=64, seed=3)]
+out = {"samples": [[ds[i] for i in range(len(ds))] for ds in readers]}
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    dataset_statistics.main(["--dataset", "ocid_object_uoais", "--root", ocid])
+out["stats"] = buf.getvalue()
+sys.stdout.buffer.write(pickle.dumps(out))
+"""
+
+
+def test_uoais_readers_and_statistics_without_cv2_or_pil(tmp_path):
+    """The three UOAIS readers (Telea inpainting, polygon fill, nearest
+    resize), synthetic_tabletop and dataset_statistics in a process where
+    cv2 and PIL cannot be imported, against the JAX package's readers and
+    CLI (synthetic_tabletop against the port in this process: the JAX
+    renderer's mottle goes through cv2's IPP, tests/test_torch_synthetic_host.py)."""
+    import contextlib
+    import io
+    import pickle
+
+    import numpy as np
+
+    from test_torch_uoais import write_sim_tree
+    from torch_eval_cases import assert_samples_equal, write_ocid_tree, write_osd_tree
+    from unseenobjectswithmeanshift_tpu.cli import dataset_statistics as jax_stats
+    from unseenobjectswithmeanshift_tpu.data import uoais as juoais
+    from unseenobjectswithmeanshift_tpu.data.datasets import get_dataset as jax_dataset
+    from unseenobjectswithmeanshift_torch.data.datasets import get_dataset
+
+    rng = np.random.RandomState(12)
+    ocid = write_ocid_tree(tmp_path / "ocid", rng, frames=2, depth_png=True)
+    osd = write_osd_tree(tmp_path / "osd", rng, frames=2, disparity=True)
+    sim = write_sim_tree(tmp_path / "sim", rng, frames=2)
+    out = subprocess.run([sys.executable, "-c", NO_CV2_UOAIS, ocid, osd, sim], cwd=REPO,
+                         env=_env(), capture_output=True, timeout=300)
+    assert out.returncode == 0, out.stderr.decode()
+    got = pickle.loads(out.stdout)
+    synthetic = get_dataset("synthetic_tabletop", "2", height=48, width=64, seed=3)
+    wants = [jax_dataset("ocid_object_uoais", ocid), jax_dataset("osd_object_uoais", osd),
+             juoais.UOAISSimDataset(sim, "coco.json"), synthetic]
+    for samples, want in zip(got["samples"], wants):
+        assert len(samples) == len(want) >= 2
+        for i, s in enumerate(samples):
+            assert_samples_equal(s, want[i])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jax_stats.main(["--dataset", "ocid_object_uoais", "--root", ocid])
+    assert got["stats"] == buf.getvalue() and "images: " in got["stats"]

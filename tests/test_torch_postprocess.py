@@ -10,6 +10,7 @@ from unseenobjectswithmeanshift_tpu.pipeline import postprocess as jpp
 from unseenobjectswithmeanshift_tpu.pipeline import refine as jrf
 from unseenobjectswithmeanshift_torch.pipeline import postprocess as pp
 from unseenobjectswithmeanshift_torch.pipeline import refine as rf
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 def t(a):
     return torch.from_numpy(np.array(a))   # a writable copy

@@ -36,6 +36,7 @@ from unseenobjectswithmeanshift_torch.ops import ms_deform_attn as msda
 from unseenobjectswithmeanshift_torch.weights import _pixel_decoder, init_random
 
 from torch_port_cases import E, FF, MD, NH, Q
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 GEN = lambda seed: torch.Generator().manual_seed(seed)   # noqa: E731
 JAX_GN_EPS = 1e-6

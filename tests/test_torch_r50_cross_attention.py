@@ -28,6 +28,7 @@ from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
 )
 
 from test_torch_cross_attention import make_inputs
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 SHAPES = {49: (7, 7), 196: (14, 14), 300: (15, 20)}
 ATOL = 2e-5

@@ -36,6 +36,7 @@ from unseenobjectswithmeanshift_torch.weights import (
 )
 
 from torch_port_cases import _shrink
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 ENC_LAYERS = 2
 HW = (64, 96)

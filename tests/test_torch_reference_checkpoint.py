@@ -27,6 +27,7 @@ from unseenobjectswithmeanshift_torch.weights import init_random, load_reference
 
 from test_torch_decoder import assert_close
 from torch_port_cases import rgbd, small_configs
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 
 def test_msmformer_pth_round_trip_matches_jax(tmp_path, rng):

@@ -23,6 +23,7 @@ from unseenobjectswithmeanshift_torch.ops import mean_shift as ms
 from unseenobjectswithmeanshift_torch.ops import mean_shift_kernels as msk
 
 from test_torch_mean_shift import batch
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 SMS, SMEM_PER_BLOCK = 132, 232_448
 

@@ -29,6 +29,7 @@ from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
 from unseenobjectswithmeanshift_torch.weights import init_random
 
 from test_torch_cross_attention import ATOL, make_inputs, with_all_masked_rows
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 H, D = 4, 8
 E = H * D

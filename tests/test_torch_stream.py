@@ -19,6 +19,7 @@ from unseenobjectswithmeanshift_torch.pipeline.factory import (
 )
 
 from torch_port_cases import rgbd, small_configs
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 
 def _msmformer():

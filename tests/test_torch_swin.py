@@ -24,6 +24,7 @@ from unseenobjectswithmeanshift_torch.models.swin import SwinTransformer
 from unseenobjectswithmeanshift_torch.weights import (
     _merge_perm, _swin_backbone, init_random,
 )
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 JAX_LN_EPS = 1e-6
 

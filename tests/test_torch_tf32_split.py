@@ -19,6 +19,7 @@ import torch
 
 from chip_smoke import MASK_MARGIN, mask_mismatches
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import pack_mask_bits
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 
 def tf32_rna(x):

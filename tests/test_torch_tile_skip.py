@@ -49,6 +49,7 @@ from test_torch_cross_attention import make_inputs
 from test_torch_decoder import assert_close
 from test_torch_two_stage import _shared_variables
 from torch_port_cases import E, FF, L, MD, NH, Q, rgbd, small_configs
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 ATOL = 2e-5   # fp32 on both sides, summed in different orders (kappa = 30)
 BLOCK_B = 2

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import few_torch_threads  # noqa: F401 (autouse)
 from unseenobjectswithmeanshift_tpu.ops.hypersphere_attention import (
     MhaParams, chunked_masked_meanshift_attention_twopass as jax_twopass,

@@ -18,6 +18,7 @@ import os
 import pytest
 import torch
 
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import few_torch_threads, tiny_batch, tiny_configs, to_torch  # noqa: F401
 from unseenobjectswithmeanshift_torch.cli import train_msmformer
 from unseenobjectswithmeanshift_torch.config import get_config

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import few_torch_threads  # noqa: F401 (autouse)
 from unseenobjectswithmeanshift_tpu.data import synthetic as jax_synthetic
 from unseenobjectswithmeanshift_tpu.data import synthetic_jax

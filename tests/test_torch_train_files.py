@@ -15,6 +15,7 @@ import torch
 
 from test_torch_augmentation import same_state
 from torch_eval_cases import write_tod_tree
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import few_torch_threads  # noqa: F401
 from unseenobjectswithmeanshift_torch.data import datasets as pds
 from unseenobjectswithmeanshift_torch.data import loader as ploader

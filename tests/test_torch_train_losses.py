@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import few_torch_threads, jax_draws  # noqa: F401
 from unseenobjectswithmeanshift_tpu.losses.criterion import SetCriterion as JaxCriterion
 from unseenobjectswithmeanshift_tpu.losses.embedding import embedding_loss as jax_embedding_loss

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import (  # noqa: F401 (few_torch_threads: autouse)
     B, few_torch_threads, scaled_diff, tiny_batch, tiny_configs, to_torch, tree_items,
 )

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from torch_eval_cases import write_tod_tree
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import few_torch_threads  # noqa: F401
 from unseenobjectswithmeanshift_torch.cli import train_msmformer, train_net
 from unseenobjectswithmeanshift_torch.config import get_config

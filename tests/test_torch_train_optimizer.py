@@ -15,6 +15,7 @@ import numpy as np
 import optax
 import torch
 
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import few_torch_threads, tiny_configs, tree_items  # noqa: F401
 from unseenobjectswithmeanshift_tpu.train.trainer import make_optimizer as jax_make_optimizer
 from unseenobjectswithmeanshift_torch.train.trainer import (
@@ -30,7 +31,11 @@ def test_optimizer_matches_optax_chain():
     params = dict(model.named_parameters())
     opt = make_optimizer(model, pc)
     tx = jax_make_optimizer(jc)
-    jparams = to_jax_variables({n: p.detach() for n, p in params.items()})["params"]
+    # copies: the tree holds views of the parameters, and JAX on the CPU may
+    # read a numpy argument in place after its call returned, so opt.step()
+    # below would race the JAX step (seen as a doubled update under load)
+    jparams = jax.tree.map(np.array, to_jax_variables(
+        {n: p.detach() for n, p in params.items()})["params"])
     state = tx.init(jparams)
 
     @jax.jit

@@ -36,6 +36,7 @@ import numpy as np
 import optax
 import torch
 
+from torch_threads import module_tmp_cleanup  # noqa: F401
 from torch_train_cases import (  # noqa: F401 (few_torch_threads: autouse)
     B, G, H, W, few_torch_threads, jax_draws, scaled_diff, tiny_batch, tiny_configs, to_torch,
     tree_items,

@@ -33,23 +33,12 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "scripts"))
 from chip_smoke import spy_cross_attention  # noqa: E402
 from export_release_npz import flatten, release_variables  # noqa: E402
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 RELEASE = "msmformer_synthetic_r5"
 SIZES = [(192, 256), pytest.param((480, 640), marks=pytest.mark.skipif(
     os.environ.get("UOMS_FLAGSHIP_PARITY") != "1",
     reason="480x640 on the CPU is heavy; set UOMS_FLAGSHIP_PARITY=1"))]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads for the port's full-width run here. Tier-1 runs
-    this file beside other pytest workers on the same cores, where torch's
-    default of one spinning thread per core made it take 808 s against 83 s
-    alone; the cap is restored after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 2))
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

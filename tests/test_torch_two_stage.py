@@ -20,6 +20,7 @@ from unseenobjectswithmeanshift_torch.pipeline.factory import build_two_stage_pr
 
 from test_e2e_parity import TorchMetaArch
 from torch_port_cases import E, FF, L, MD, NH, Q, rgbd, small_configs
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 
 def _shared_variables():

@@ -33,6 +33,7 @@ from unseenobjectswithmeanshift_torch.pipeline.refine import match_label_crop
 
 from test_torch_backbone import _perturb_bn
 from test_torch_cuda import tabletop_scene
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 SEEDS, T, CROP = 12, 4, 32
 

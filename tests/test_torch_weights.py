@@ -11,6 +11,7 @@ from unseenobjectswithmeanshift_torch.models.meta_arch import MSMFormer
 from unseenobjectswithmeanshift_torch.weights import from_jax_variables, init_random
 
 from torch_port_cases import jax_msmformer_variables, small_configs
+from torch_threads import few_torch_threads, module_tmp_cleanup  # noqa: F401
 
 
 def _leaves(tree):

@@ -9,27 +9,14 @@ port's criterion gets the JAX package's own random draws.
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 from unseenobjectswithmeanshift_tpu.config import get_config as jax_get_config
 from unseenobjectswithmeanshift_torch.config import get_config
 from unseenobjectswithmeanshift_torch.losses.criterion import CriterionDraws
+from torch_threads import few_torch_threads  # noqa: F401  (re-exported)
 
 H, W, B, G = 32, 48, 2, 3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads (imported by each test module, as
-    tests/test_torch_trained_weights.py does): Tier-1 runs the training
-    tests beside other pytest workers on the same cores, where torch's
-    default of one spinning thread per core made test_torch_train_model.py
-    take 322 s against 16 s alone; restored after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 2))
-    yield
-    torch.set_num_threads(threads)
 
 
 def _shrink(cfg, input_type):

@@ -24,8 +24,10 @@ Semantics of the reference datasets:
   augmentation, SYN_CROP square padded crops at 224, pixel sampling for the
   embedding loss, chromatic and noise augmentation of the colour image; the
   draws from its ``np.random.RandomState(seed)`` in the JAX reader's order.
-  The procedural ``synthetic_tabletop`` entry raises, naming ROADMAP queue 1
-  item 14.
+  The procedural ``synthetic_tabletop`` entry serves
+  ``data/synthetic.SyntheticTabletopDataset`` (host-rendered scenes; its
+  root, where given, is the scene count). The ``*_uoais`` entries are
+  ``data/uoais.py``'s readers.
 - PushingDataset / MixtureDataset (ref: lib/datasets/pushing_dataset.py,
   mixture_dataset.py): real robot sequences, 1:3 pushing:tabletop mixture
 """
@@ -341,10 +343,13 @@ def _uoais(name):
 
 
 def _synthetic_tabletop(root=None, **kwargs):
-    raise ValueError("synthetic_tabletop (the host-rendered scenes of "
-                     "data/synthetic.SyntheticTabletopDataset) is not ported yet (ROADMAP "
-                     "queue 1 item 14: the host renderer); the scenes render on the card "
-                     "through data/synthetic_device.SyntheticDeviceLoader")
+    """Host-rendered scenes (data/synthetic.py): no files; root, where
+    given, is the scene count."""
+    from .synthetic import SyntheticTabletopDataset   # synthetic imports this module
+
+    if root not in (None, ""):
+        kwargs.setdefault("num_scenes", int(root))
+    return SyntheticTabletopDataset(**kwargs)
 
 
 DATASETS = {

@@ -30,13 +30,39 @@ machine has no cv2. Each function here returns what the cv2 call returns
   sines to 7 decimals) in 16-bit fixed point, its outline drawn by Line2
   with clipLine, then FillConvexPoly's scanlines.
 
+And for the UOAIS readers and the host renderer (JAX ``data/uoais.py``,
+``data/synthetic.py:404-405``):
+
+- ``inpaint_telea``: ``cv2.inpaint(img, mask, radius, INPAINT_TELEA)`` on
+  uint8 BGR: fast marching of the distance outside the holes over the ring
+  the radius reaches, then each hole pixel filled in arrival order (ties
+  in push order) from its known neighbours within the radius, with cv2's
+  direction, level and distance weights; the sums in float and the level
+  ``1 / (1 + |dT|)`` in double, the known pixel's value read at its own
+  position and its gradient at the border-shifted one, as cv2 does;
+- ``dilate_u8``: ``cv2.dilate`` with a rectangle of ones (the default
+  border adds nothing);
+- ``fill_poly``: ``cv2.fillPoly(mask, [pts], value)`` for one integer
+  polygon: the outline by Line (Bresenham through clipLine), then the
+  scanlines between pairs of active edges from the ceiling of the left x
+  to the floor of the right x (16-bit fixed point); an edge that leaves
+  the image runs along its clipped segment, or down the clipped end's
+  column where that segment is one row;
+- ``resize_cubic_f32``: INTER_CUBIC on float32 as cv2's own code computes
+  it (the IPP path off): float sums, horizontal left to right; vertical
+  ``b0 S0 + (b1 S1 + (b2 S2 + b3 S3))`` in blocks of four columns and the
+  rest left to right. With IPP on (cv2's default where IPP is built in)
+  cv2 returns values a few float32 ulps away (``CUBIC_IPP_ULPS``).
+
 ``backend="native"`` runs the host library (``native/uoms_native.cpp``,
 ctypes, the interpreter lock released); ``backend="numpy"`` is its twin,
-in numpy (the ellipse in plain Python integers).
+in numpy (the ellipse and the polygon in plain Python integers, Telea's
+queue in Python with each pixel's window in numpy).
 """
 
 from __future__ import annotations
 
+import heapq
 import math
 
 import numpy as np
@@ -217,6 +243,31 @@ def _cdiv(a: int, b: int) -> int:
     return q if (a >= 0) == (b >= 0) else -q
 
 
+def _clip_line(right, bottom, x1, y1, x2, y2):
+    """cv2's clipLine to [0, right] x [0, bottom]: (inside, x1, y1, x2, y2)."""
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1, c1 = a, (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2, c2 = a, (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
 class _Ellipse:
     """cv2's ellipse2Poly, clipLine, Line2 and FillConvexPoly on a bool
     canvas, in Python integers (the native function's twin)."""
@@ -230,28 +281,7 @@ class _Ellipse:
             self.mask[y, x] = True
 
     def clip(self, x1, y1, x2, y2):
-        right, bottom = (self.w << XY_SHIFT) - 1, (self.h << XY_SHIFT) - 1
-        c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
-        c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
-        if (c1 & c2) == 0 and (c1 | c2) != 0:
-            if c1 & 12:
-                a = 0 if c1 < 8 else bottom
-                x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
-                y1, c1 = a, (x1 < 0) + (x1 > right) * 2
-            if c2 & 12:
-                a = 0 if c2 < 8 else bottom
-                x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
-                y2, c2 = a, (x2 < 0) + (x2 > right) * 2
-            if (c1 & c2) == 0 and (c1 | c2) != 0:
-                if c1:
-                    a = 0 if c1 == 1 else right
-                    y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
-                    x1, c1 = a, 0
-                if c2:
-                    a = 0 if c2 == 1 else right
-                    y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
-                    x2, c2 = a, 0
-        return (c1 | c2) == 0, x1, y1, x2, y2
+        return _clip_line((self.w << XY_SHIFT) - 1, (self.h << XY_SHIFT) - 1, x1, y1, x2, y2)
 
     def line(self, x1, y1, x2, y2):
         ok, x1, y1, x2, y2 = self.clip(x1, y1, x2, y2)
@@ -349,3 +379,312 @@ class _Ellipse:
             y += 1
             if y > ymax:
                 break
+
+
+
+# ---------------------------------------------------------------------------
+# the UOAIS readers' operations
+
+CUBIC_IPP_ULPS = 16   # |resize_cubic_f32 - cv2 with IPP| on [0, 1) values, in ulps of 1.0
+
+
+def resize_cubic_f32(img, dh: int, dw: int, backend: str = "native") -> np.ndarray:
+    """cv2.resize(img, (dw, dh), interpolation=INTER_CUBIC) of float32
+    [H, W] or [H, W, C], as cv2's own code computes it."""
+    native.check_backend(backend)
+    img = np.asarray(img, F32)
+    if backend == "native":
+        return native.resize_cubic_f32(img, dh, dw)
+    H, W = img.shape[:2]
+    im = img.reshape(H, W, -1)
+    ix, ax = _cubic_taps(dw, W)
+    iy, ay = _cubic_taps(dh, H)
+    ax, ay = ax.astype(F32), ay.astype(F32)
+    t = im[:, ix]                                             # [H, dw, 4, C]
+    h = t[:, :, 0] * ax[None, :, 0, None]
+    for k in range(1, 4):
+        h = h + t[:, :, k] * ax[None, :, k, None]
+    r = h.reshape(H, -1)[iy]                                  # [dh, 4, dw * C]
+    b = [ay[:, k, None] for k in range(4)]
+    out = r[:, 0] * b[0] + (r[:, 1] * b[1] + (r[:, 2] * b[2] + r[:, 3] * b[3]))
+    vec = r.shape[2] // 4 * 4
+    tail = r[:, 0, vec:] * b[0]
+    for k in range(1, 4):
+        tail = tail + r[:, k, vec:] * b[k]
+    out[:, vec:] = tail
+    return out.reshape((dh, dw) + img.shape[2:])
+
+
+def dilate_u8(img, ksize, backend: str = "native") -> np.ndarray:
+    """cv2.dilate(img, np.ones(ksize)) of uint8 [H, W] (ksize an int or
+    (kh, kw); anchor at the kernel's centre, k // 2)."""
+    native.check_backend(backend)
+    kh, kw = (ksize, ksize) if np.isscalar(ksize) else ksize
+    img = np.asarray(img, np.uint8)
+    if backend == "native":
+        return native.dilate_u8(img, int(kh), int(kw))
+    H, W = img.shape
+    p = np.zeros((H + kh - 1, W + kw - 1), np.uint8)
+    p[kh // 2:kh // 2 + H, kw // 2:kw // 2 + W] = img
+    out = np.zeros_like(img)
+    for dy in range(kh):
+        for dx in range(kw):
+            np.maximum(out, p[dy:dy + H, dx:dx + W], out=out)
+    return out
+
+
+def fill_poly(mask: np.ndarray, pts, value: int = 1, backend: str = "native") -> np.ndarray:
+    """In place and returned: cv2.fillPoly(mask, [pts], value) of integer
+    points [n, 2] (x, y) into a C-contiguous uint8 [H, W] mask."""
+    native.check_backend(backend)
+    if backend == "native":
+        native.fill_poly_u8(mask, pts, value)
+        return mask
+    if mask.dtype != np.uint8 or mask.ndim != 2:
+        raise ValueError("fill_poly draws into a uint8 [H, W] mask")
+    _Polygon(mask, int(value)).fill([(int(x), int(y)) for x, y in np.asarray(pts)])
+    return mask
+
+
+class _Polygon:
+    """cv2's CollectPolyEdges (LINE_8, no shift) and FillEdgeCollection in
+    Python integers (the native fill_poly_u8's twin)."""
+
+    def __init__(self, mask, value):
+        self.mask, self.value = mask, value
+        self.h, self.w = mask.shape
+
+    def inside(self, x, y):
+        return 0 <= x < self.w and 0 <= y < self.h
+
+    def clip(self, x1, y1, x2, y2):
+        return _clip_line(self.w - 1, self.h - 1, x1, y1, x2, y2)
+
+    def line(self, x1, y1, x2, y2):
+        if not (self.inside(x1, y1) and self.inside(x2, y2)):
+            ok, x1, y1, x2, y2 = self.clip(x1, y1, x2, y2)
+            if not ok:
+                return
+        dx, dy, sy = x2 - x1, y2 - y1, 1
+        if dx < 0:
+            dx, dy, x1, y1 = -dx, -dy, x2, y2
+        if dy < 0:
+            dy, sy = -dy, -1
+        vert = dy > dx
+        if vert:
+            dx, dy = dy, dx
+        err, x, y = dx - 2 * dy, x1, y1
+        for _ in range(dx + 1):
+            self.mask[y, x] = self.value
+            step = err < 0
+            err += -2 * dy + (2 * dx if step else 0)
+            if vert:
+                x, y = x + step, y + sy
+            else:
+                x, y = x + 1, y + (sy if step else 0)
+
+    def fill(self, pts):
+        edges = []
+        px, py = pts[-1]
+        for qx, qy in pts:
+            self.line(px, py, qx, qy)
+            x0, y0, x1, y1 = px << XY_SHIFT, py, qx << XY_SHIFT, qy
+            if not (self.inside(px, py) and self.inside(qx, qy)):
+                _, a, b, c, d = self.clip(px, py, qx, qy)
+                x0, y0, x1, y1 = a << XY_SHIFT, b, c << XY_SHIFT, d
+            if py != qy:
+                dx = _cdiv(x1 - x0, y1 - y0) if y1 != y0 else 0
+                edges.append([py, qy, x0 + (py - y0) * dx, dx] if py < qy
+                             else [qy, py, x1 + (qy - y1) * dx, dx])
+            px, py = qx, qy
+        self.scan(edges)
+
+    def scan(self, edges):
+        if len(edges) < 2:
+            return
+        ends = [x for e in edges for x in (e[2], e[2] + (e[1] - e[0]) * e[3])]
+        ymin, ymax = min(e[0] for e in edges), max(e[1] for e in edges)
+        if ymax < 0 or ymin >= self.h or max(ends) < 0 or min(ends) >= self.w << XY_SHIFT:
+            return
+        edges.sort(key=lambda e: (e[0], e[2], e[3]))
+        active, nxt = [], 0
+        for y in range(edges[0][0], min(ymax, self.h)):
+            live, merged = [e for e in active if e[1] != y], []
+            a = 0
+            while nxt < len(edges) and edges[nxt][0] == y:
+                while a < len(live) and live[a][2] < edges[nxt][2]:
+                    merged.append(live[a])
+                    a += 1
+                merged.append(edges[nxt])
+                nxt += 1
+            active = merged + live[a:]
+            for k in range(0, len(active) - 1, 2):
+                if y >= 0:
+                    left, right = sorted((active[k][2], active[k + 1][2]))
+                    x1, x2 = (left + XY_ONE - 1) >> XY_SHIFT, right >> XY_SHIFT
+                    if x1 < self.w and x2 >= 0:
+                        self.mask[y, max(x1, 0):min(x2, self.w - 1) + 1] = self.value
+                active[k][2] += active[k][3]
+                active[k + 1][2] += active[k + 1][3]
+            active.sort(key=lambda e: e[2])
+
+
+TELEA_KNOWN, TELEA_BAND, TELEA_INSIDE, TELEA_CHANGE = 0, 1, 2, 3
+
+
+def inpaint_telea(img, mask, radius: int = 3, backend: str = "native") -> np.ndarray:
+    """cv2.inpaint(img, mask, radius, INPAINT_TELEA) of uint8 BGR [H, W, 3]
+    with an [H, W] mask (nonzero = fill)."""
+    native.check_backend(backend)
+    if backend == "native":
+        return native.telea_inpaint_u8c3(img, mask, radius)
+    img = np.asarray(img, np.uint8)
+    mask = np.asarray(mask)
+    if img.ndim != 3 or img.shape[2] != 3 or min(img.shape[:2]) < 2 or \
+            mask.shape != img.shape[:2]:
+        raise ValueError(f"a uint8 [H, W, 3] image of at least 2x2 (cv2 reads outside a "
+                         f"narrower one) and an [H, W] mask, got {img.shape} and {mask.shape}")
+    return _Telea(img, mask, max(1, min(100, int(radius)))).run()
+
+
+def _f32(x) -> float:
+    return float(F32(x))
+
+
+class _Telea:
+    """The twin of the native telea_inpaint_u8c3: the queue and the arrival
+    times in Python, each filled pixel's window in float32 numpy, its sums
+    sequential (add.accumulate) in cv2's raster order."""
+
+    def __init__(self, img, mask, rng):
+        H, W, _ = img.shape
+        self.out, self.rng = img.copy(), rng
+        self.rows, self.cols = H + 2, W + 2
+        hole = np.zeros((self.rows, self.cols), bool)
+        hole[1:-1, 1:-1] = mask != 0
+        self.hole = hole
+        inner = np.zeros_like(hole)
+        inner[1:-1, 1:-1] = True
+        cross = np.zeros_like(hole)
+        cross[1:-1, 1:-1] = hole[:-2, 1:-1] | hole[2:, 1:-1] | hole[1:-1, :-2] | hole[1:-1, 2:]
+        self.band = cross & ~hole & inner
+        wide = np.zeros_like(hole)
+        for d in range(-min(rng, self.cols - 1), min(rng, self.cols - 1) + 1):
+            wide[:, max(d, 0):self.cols + min(d, 0)] |= hole[:, max(-d, 0):self.cols - max(d, 0)]
+        square = np.zeros_like(hole)
+        for d in range(-min(rng, self.rows - 1), min(rng, self.rows - 1) + 1):
+            square[max(d, 0):self.rows + min(d, 0)] |= wide[max(-d, 0):self.rows - max(d, 0)]
+        self.ring = square & ~hole & ~self.band & inner
+        self.t = np.full((self.rows, self.cols), 1.0e6, F32)
+        self.t[self.band] = 0
+        self.f = np.where(hole, TELEA_INSIDE, np.where(self.band, TELEA_BAND, TELEA_KNOWN)
+                          ).astype(np.uint8)
+        dy, dx = np.mgrid[-rng:rng + 1, -rng:rng + 1]
+        self.disk = dy * dy + dx * dx <= rng * rng
+
+    def solve(self, f, i1, j1, i2, j2):
+        t = self.t
+        a11, a22 = float(t[i1, j1]), float(t[i2, j2])
+        in1, in2 = f[i1, j1] == TELEA_INSIDE, f[i2, j2] == TELEA_INSIDE
+        if not in1 and not in2:
+            if abs(a11 - a22) >= 1.0:
+                return _f32(1 + min(a11, a22))
+            return _f32((a11 + a22 + math.sqrt(2 - (a11 - a22) * (a11 - a22))) * 0.5)
+        if not in1:
+            return _f32(1 + a11)
+        if not in2:
+            return _f32(1 + a22)
+        return _f32(1 + min(a11, a22))
+
+    def arrival(self, f, i, j):
+        return min(self.solve(f, i - 1, j, i, j - 1), self.solve(f, i + 1, j, i, j - 1),
+                   self.solve(f, i - 1, j, i, j + 1), self.solve(f, i + 1, j, i, j + 1))
+
+    def march_outside(self, seeds):
+        """The ring's arrival times by fast marching from the band, negated."""
+        ring = np.where(self.ring, TELEA_INSIDE, TELEA_KNOWN).astype(np.uint8)
+        heap, n = list(seeds), len(seeds)
+        while heap:
+            _, _, ii, jj = heapq.heappop(heap)
+            ring[ii, jj] = TELEA_CHANGE
+            for i, j in ((ii - 1, jj), (ii, jj - 1), (ii + 1, jj), (ii, jj + 1)):
+                if ring[i, j] == TELEA_INSIDE:
+                    d = self.arrival(ring, i, j)
+                    self.t[i, j] = d
+                    ring[i, j] = TELEA_BAND
+                    heapq.heappush(heap, (d, n, i, j))
+                    n += 1
+        changed = ring == TELEA_CHANGE
+        self.t[changed] = -self.t[changed]
+
+    def run(self):
+        if not self.hole.any():
+            return self.out
+        seeds = [(0.0, n, int(i), int(j)) for n, (i, j) in enumerate(zip(*np.nonzero(self.band)))]
+        self.march_outside(seeds)
+        f, heap, n = self.f, list(seeds), len(seeds)
+        while heap:
+            _, _, ii, jj = heapq.heappop(heap)
+            f[ii, jj] = TELEA_KNOWN
+            for i, j in ((ii - 1, jj), (ii, jj - 1), (ii + 1, jj), (ii, jj + 1)):
+                if f[i, j] != TELEA_INSIDE:
+                    continue
+                dist = self.arrival(f, i, j)
+                self.t[i, j] = dist
+                self.fill(i, j)
+                f[i, j] = TELEA_BAND
+                heapq.heappush(heap, (dist, n, i, j))
+                n += 1
+        return self.out
+
+    def grad_t(self, i, j):
+        f, t = self.f, self.t
+
+        def along(fp, fm, tp, tm, tc):
+            if fp != TELEA_INSIDE:
+                return F32(tp - tm) * F32(0.5) if fm != TELEA_INSIDE else F32(tp - tc)
+            return F32(tc - tm) if fm != TELEA_INSIDE else F32(0)
+
+        return (along(f[i, j + 1], f[i, j - 1], t[i, j + 1], t[i, j - 1], t[i, j]),
+                along(f[i + 1, j], f[i - 1, j], t[i + 1, j], t[i - 1, j], t[i, j]))
+
+    def fill(self, i, j):
+        rng, rows, cols, f, out = self.rng, self.rows, self.cols, self.f, self.out
+        gx, gy = self.grad_t(i, j)
+        k0, k1 = max(i - rng, 1), min(i + rng, rows - 2)
+        l0, l1 = max(j - rng, 1), min(j + rng, cols - 2)
+        disk = self.disk[k0 - i + rng:k1 - i + rng + 1, l0 - j + rng:l1 - j + rng + 1]
+        sel = disk & (f[k0:k1 + 1, l0:l1 + 1] != TELEA_INSIDE)
+        k, l = np.nonzero(sel)
+        k, l = k + k0, l + l0
+        if len(k) == 0:
+            out[i - 1, j - 1] = 0                  # (0 / 1e-20 + 0 / 1e-20 + 0.5) rounds to 0
+            return
+        ry, rx = (i - k).astype(F32), (j - l).astype(F32)
+        vl = (rx * rx + ry * ry).astype(np.float64)
+        dst = (1.0 / (vl * np.sqrt(vl))).astype(F32)
+        lev = (1.0 / (1 + np.abs((self.t[k, l] - self.t[i, j]).astype(np.float64)))).astype(F32)
+        dirn = rx * gx + ry * gy
+        dirn = np.where(np.abs(dirn).astype(np.float64) <= 0.01, F32(0.000001), dirn)
+        w = np.abs(dst * lev * dirn)[:, None]
+        km, kp = k - 1 + (k == 1), k - 1 - (k == rows - 2)
+        lm, lp = l - 1 + (l == 1), l - 1 - (l == cols - 2)
+
+        def o(a, b):
+            return out[a, b].astype(F32)
+
+        right, left = (f[k, l + 1] != TELEA_INSIDE)[:, None], (f[k, l - 1] != TELEA_INSIDE)[:, None]
+        down, up = (f[k + 1, l] != TELEA_INSIDE)[:, None], (f[k - 1, l] != TELEA_INSIDE)[:, None]
+        gix = np.where(right, np.where(left, (o(km, lp + 1) - o(km, lm - 1)) * F32(2),
+                                       o(km, lp + 1) - o(km, lm)),
+                       np.where(left, o(km, lp) - o(km, lm - 1), F32(0)))
+        giy = np.where(down, np.where(up, (o(kp + 1, lm) - o(km - 1, lm)) * F32(2),
+                                      o(kp + 1, lm) - o(km, lm)),
+                       np.where(up, o(kp, lm) - o(km - 1, lm), F32(0)))
+        ia = np.add.accumulate(w * o(k - 1, l - 1), axis=0, dtype=F32)[-1]
+        jx = -np.add.accumulate(w * (gix * rx[:, None]), axis=0, dtype=F32)[-1]
+        jy = -np.add.accumulate(w * (giy * ry[:, None]), axis=0, dtype=F32)[-1]
+        s = np.add.accumulate(np.concatenate([np.full((1, 3), 1.0e-20, F32),
+                                              np.repeat(w, 3, 1)]), axis=0, dtype=F32)[-1]
+        sat = ia / s + (jx + jy) / (np.sqrt(jx * jx + jy * jy) + F32(1.0e-20)) + F32(0.5)
+        out[i - 1, j - 1] = np.clip(np.rint(sat), 0, 255).astype(np.uint8)

@@ -1,15 +1,19 @@
-"""Synthetic tabletop scenes: the host-side scene sampler.
+"""Synthetic tabletop scenes: the host-side scene sampler and renderer.
 
-The port's own copy of ``unseenobjectswithmeanshift_tpu.data.synthetic``'s
-sampler (:63-313): ``sample_scene_params`` draws one scene (a table plane
-pitched 30-55 deg about 1.0-1.4 m away, 3 to max_objects spheres, boxes and
-capped cylinders resting on it, their albedos, the table's mottle and the
-light) as packed fixed-shape float32 arrays, from a
-``numpy.random.RandomState``, in the JAX package's draw order, so that one
-seed gives the same scene in both packages. ``data/synthetic_device.py``
-renders the scenes on the card. The TOD camera's intrinsics come from
-``fov_intrinsics`` (the JAX package's ``data.datasets.fov_intrinsics``,
-computed the same way).
+The port's own copy of ``unseenobjectswithmeanshift_tpu.data.synthetic``
+(:63-559): ``sample_scene_params`` draws one scene (a table plane pitched
+30-55 deg about 1.0-1.4 m away, 3 to max_objects spheres, boxes and capped
+cylinders resting on it, their albedos, the table's mottle and the light)
+as packed fixed-shape float32 arrays, from a ``numpy.random.RandomState``,
+in the JAX package's draw order, so that one seed gives the same scene in
+both packages. ``data/synthetic_device.py`` renders the scenes on the card;
+``render_scene_numpy`` renders one on the host (closest hit of analytic
+rays, as the JAX package's numpy renderer does, its table mottle upsampled
+by ``image_ops.resize_cubic_f32``, OpenCV's INTER_CUBIC without OpenCV),
+and ``SyntheticTabletopDataset`` serves the host-rendered scenes as
+``TableTopObject`` samples (the ``synthetic_tabletop`` dataset). The TOD
+camera's intrinsics come from ``fov_intrinsics`` (the JAX package's
+``data.datasets.fov_intrinsics``, computed the same way).
 
 The scenes stand in for the Tabletop Object Dataset (ShapeNet solids on a
 table, exact labels and depth), which is not in the repository: a
@@ -18,9 +22,13 @@ learning-capability source, not an accuracy-parity one.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+
+from . import augmentation as aug
+from . import image_ops
+from .datasets import TableTopObject, compute_xyz, normalize_bgr, remap_labels
 
 KIND_NONE, KIND_SPHERE, KIND_BOX, KIND_CYLINDER = 0, 1, 2, 3
 
@@ -283,3 +291,234 @@ def _spaced(foot, rad, feet, touching):
         if float(np.sum((foot - f) ** 2)) < dmin * dmin:
             return False
     return True
+
+
+
+# ---------------------------------------------------------------------------
+# the host renderer (JAX data/synthetic.py:314-452)
+
+
+def _ray_dirs(H, W, intr):
+    cols, rows = np.meshgrid(np.arange(W, dtype=np.float32),
+                             np.arange(H, dtype=np.float32))
+    d = np.stack([(cols - intr["x_offset"]) / intr["fx"],
+                  (rows - intr["y_offset"]) / intr["fy"],
+                  np.ones_like(cols)], axis=-1)          # [H, W, 3], dz = 1
+    return d.reshape(-1, 3)
+
+
+def _intersect_plane(d, p0, n):
+    """Rays from the origin: t = (p0.n) / (d.n); t <= 0 -> no hit."""
+    dn = d @ n
+    t = np.where(np.abs(dn) > 1e-9, (p0 @ n) / np.where(dn == 0, 1.0, dn), np.inf)
+    return np.where(t > 1e-6, t, np.inf)
+
+
+def _intersect_sphere(d, c, r):
+    """|t d - c|^2 = r^2 with |d| != 1: a t^2 - 2 t d.c + |c|^2 - r^2 = 0."""
+    a = np.sum(d * d, axis=1)
+    b = d @ c
+    cc = float(c @ c - r * r)
+    disc = b * b - a * cc
+    ok = disc > 0
+    sq = np.sqrt(np.where(ok, disc, 0.0))
+    t = (b - sq) / a                            # the nearest root
+    return np.where(ok & (t > 1e-6), t, np.inf)
+
+
+def _intersect_box(d, center, R, half):
+    """Oriented box: the slab method in the box frame (R: box -> camera)."""
+    o = -center @ R                             # R^T @ (0 - center)
+    dd = d @ R                                  # [N, 3] directions in the box frame
+    safe = np.where(np.abs(dd) < 1e-12, 1e-12, dd)
+    t1 = (-half - o) / safe
+    t2 = (half - o) / safe
+    tmin = np.minimum(t1, t2).max(axis=1)
+    tmax = np.maximum(t1, t2).min(axis=1)
+    hit = (tmax >= tmin) & (tmax > 1e-6)
+    t = np.where(tmin > 1e-6, tmin, tmax)       # rays from inside the box exit forward
+    return np.where(hit, t, np.inf)
+
+
+def _intersect_cylinder(d, base, axis, r, h):
+    """Finite capped cylinder: base point, unit axis, radius, height."""
+    d_par = (d @ axis)[:, None] * axis
+    d_ort = d - d_par
+    o = -base
+    o_par = float(o @ axis) * axis
+    o_ort = o - o_par
+    a = np.sum(d_ort * d_ort, axis=1)
+    b = d_ort @ o_ort
+    c = float(o_ort @ o_ort) - r * r
+    disc = b * b - a * c
+    ok = (disc > 0) & (a > 1e-12)
+    sq = np.sqrt(np.where(ok, disc, 0.0))
+    sa = np.where(a > 1e-12, a, 1.0)
+    t_side = np.where(ok, (-b - sq) / sa, np.inf)
+    with np.errstate(invalid="ignore"):
+        z_hit = np.where(np.isfinite(t_side), (t_side * (d @ axis)) - float(base @ axis), np.inf)
+    t_side = np.where((t_side > 1e-6) & (z_hit >= 0) & (z_hit <= h), t_side, np.inf)
+    # the caps: planes at base and base + h * axis, inside the radius
+    t_caps = np.full_like(t_side, np.inf)
+    dn = d @ axis
+    for p0c in (base, base + h * axis):
+        tc = np.where(np.abs(dn) > 1e-9, float(p0c @ axis) / np.where(dn == 0, 1, dn), np.inf)
+        with np.errstate(invalid="ignore"):
+            hitp = np.where(np.isfinite(tc)[:, None], tc[:, None] * d, 0.0) - p0c
+        inside = np.sum(hitp * hitp, axis=1) <= r * r
+        t_caps = np.minimum(t_caps, np.where((tc > 1e-6) & np.isfinite(tc) & inside, tc, np.inf))
+    return np.minimum(t_side, t_caps)
+
+
+def render_scene_numpy(params, H, W, intr, backend="native"):
+    """Closest-hit render of packed params.
+
+    Returns (rgb float32 [H, W, 3] in [0, 1], depth_m float32 [H, W] (0 where
+    no hit), label int32 [H, W]: 0 = plane / background, else params['ids']
+    [slot], the instance id (composites span several slots of one id)).
+    ``backend`` picks the mottle's cubic upsampling (native or its twin).
+    """
+    d = _ray_dirs(H, W, intr)
+    N = d.shape[0]
+    n = params["plane_n"]
+    t_best = _intersect_plane(d, params["plane_p0"], n)
+    ids = np.zeros(N, np.int32)
+    normals = np.broadcast_to(n, (N, 3)).copy()
+    mottle = image_ops.resize_cubic_f32(params["mottle"], H, W, backend=backend)
+    albedos = (params["table_albedo"] * (0.8 + 0.4 * mottle.reshape(-1, 1))).astype(np.float32)
+
+    with np.errstate(invalid="ignore"):
+        for i in range(len(params["kinds"])):
+            kind = int(params["kinds"][i])
+            if kind == KIND_NONE:
+                continue
+            c = params["centers"][i]
+            if kind == KIND_SPHERE:
+                r = float(params["dims"][i][0])
+                t = _intersect_sphere(d, c, r)
+                p = np.where(np.isfinite(t)[:, None], t[:, None] * d, 0.0)
+                nm = p - c
+            elif kind == KIND_CYLINDER:
+                axis = params["axes"][i]
+                r, h = float(params["dims"][i][0]), float(params["dims"][i][1])
+                t = _intersect_cylinder(d, c, axis, r, h)
+                p = np.where(np.isfinite(t)[:, None], t[:, None] * d, 0.0)
+                z = (p - c) @ axis
+                side = p - c - z[:, None] * axis
+                nm = np.where((z > 1e-4)[:, None] & (z < h - 1e-4)[:, None],
+                              side, np.sign(z - h / 2)[:, None] * axis)
+            else:
+                R = params["rots"][i]
+                half = params["dims"][i]
+                t = _intersect_box(d, c, R, half)
+                p = np.where(np.isfinite(t)[:, None], t[:, None] * d, 0.0)
+                local = (p - c) @ R
+                ax = np.argmax(np.abs(local) / half, axis=1)
+                nm = np.sign(local[np.arange(N), ax] + 1e-30)[:, None] * R.T[ax]
+            hit = t < t_best
+            t_best = np.where(hit, t, t_best)
+            ids = np.where(hit, int(params["ids"][i]), ids)
+            normals = np.where(hit[:, None], nm, normals)
+            albedos = np.where(hit[:, None], params["albedos"][i], albedos)
+
+    depth = np.where(np.isfinite(t_best), t_best, 0.0)   # dz = 1 -> t is the z depth
+    nn = normals / np.maximum(np.linalg.norm(normals, axis=1, keepdims=True), 1e-9)
+    lam = np.abs(nn @ params["light"])
+    shade = 0.35 + 0.65 * lam
+    rgb = np.clip(albedos * shade[:, None], 0, 1)
+    return (rgb.reshape(H, W, 3).astype(np.float32), depth.reshape(H, W).astype(np.float32),
+            ids.reshape(H, W))
+
+
+class SyntheticTabletopDataset(TableTopObject):
+    """TableTopObject's samples from scenes rendered on the host.
+
+    The same sample dict ({image, xyz, label, file_name}) and the same
+    augmentation / SYN_CROP / pixel-sampling machinery (inherited); only the
+    source differs. Samples are deterministic in (seed, image_set, idx), and
+    'train' and 'test' index disjoint scene streams. The host ray-casts a
+    480x640 scene in about a second; training renders on the card instead
+    (``data/synthetic_device.SyntheticDeviceLoader``).
+    """
+
+    def __init__(self, num_scenes=20000, image_set="train", input_type="RGBD",
+                 height=480, width=640, max_objects=9, min_objects=3,
+                 use_augmentation=True, syn_crop=False, crop_size=224,
+                 min_padding=0.5, max_padding=1.0,
+                 sampling=False, sampling_num=1000, chromatic=True,
+                 add_noise=True, seed: Optional[int] = 0, scene_style="r4"):
+        self.num_scenes = int(num_scenes)
+        self.image_set = image_set
+        self.input_type = input_type
+        self.H, self.W = int(height), int(width)
+        self.max_objects = max_objects
+        self.min_objects = min_objects
+        # 'ocid' pushes the scene statistics toward OCID clutter
+        # (sample_scene_params); 'r4' keeps the round-4 streams
+        self.style = dict(p_stack=0.0, p_composite=0.0, touching=False, max_slots=None)
+        if scene_style == "ocid":
+            self.style = dict(p_stack=0.3, p_composite=0.25, touching=True,
+                              max_slots=max(20, max_objects + 6))
+            self.max_objects = max(max_objects, 14)
+            self.min_objects = max(min_objects, 5)
+        elif scene_style != "r4":
+            raise ValueError(f"unknown scene_style {scene_style!r}")
+        self.use_augmentation = use_augmentation
+        self.syn_crop = syn_crop
+        self.crop_size = crop_size
+        self.min_padding = min_padding
+        self.max_padding = max_padding
+        self.sampling = sampling
+        self.sampling_num = sampling_num
+        self.chromatic = chromatic
+        self.add_noise = add_noise
+        self.base_seed = 0 if seed is None else int(seed)
+        self.split_salt = {"train": 0, "test": 1 << 20, "all": 0}[image_set]   # disjoint streams
+        self.rng = np.random.RandomState(self.base_seed)  # the augmentations' draws
+        self.intrinsics = fov_intrinsics(self.W, self.H)
+
+    def __len__(self):
+        return self.num_scenes
+
+    def scene_rng(self, idx):
+        return np.random.RandomState(
+            (self.base_seed * 1_000_003 + self.split_salt + int(idx)) % (2 ** 31 - 1))
+
+    def scene_params(self, idx):
+        return sample_scene_params(self.scene_rng(idx), self.intrinsics,
+                                   max_objects=self.max_objects, min_objects=self.min_objects,
+                                   height=self.H, width=self.W, **self.style)
+
+    def __getitem__(self, idx):
+        params = self.scene_params(idx)
+        rgb, depth, label = render_scene_numpy(params, self.H, self.W, self.intrinsics)
+        im = (rgb[..., ::-1] * 255).astype(np.uint8)     # BGR uint8
+        label = remap_labels(label)
+
+        xyz = None
+        if self.input_type in ("DEPTH", "RGBD"):
+            if self.use_augmentation:
+                depth = aug.add_noise_to_depth(depth, rng=self.rng)
+                depth = aug.dropout_random_ellipses(depth, rng=self.rng)
+            i = self.intrinsics
+            xyz = compute_xyz(depth, i["fx"], i["fy"], i["x_offset"], i["y_offset"])
+            if self.use_augmentation:
+                xyz = aug.add_noise_to_xyz(np.asarray(xyz), depth, rng=self.rng)
+            xyz = np.asarray(xyz, np.float32)
+
+        if self.syn_crop:
+            im, label, xyz = self.pad_crop_resize(im, label, xyz)
+            label = remap_labels(label)
+
+        sample_label = label
+        if self.sampling:
+            sample_label = self.sample_pixels(label, self.sampling_num)
+
+        if self.chromatic and self.rng.rand(1) > 0.1:
+            im = aug.chromatic_transform(im, rng=self.rng)
+        if self.add_noise and self.rng.rand(1) > 0.1:
+            im = aug.add_noise(im, rng=self.rng)
+
+        return {"image": normalize_bgr(im), "xyz": xyz,
+                "label": sample_label.astype(np.int32),
+                "file_name": f"synthetic/{self.image_set}/{idx:07d}"}

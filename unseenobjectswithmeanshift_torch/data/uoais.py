@@ -13,10 +13,10 @@ for sample:
 - OSDObjectUOAIS / OCIDObjectUOAIS: eval variants with the normalized-depth
   pipeline instead of XYZ (ref: load_OSD_UOAIS.py, load_OCID_UOAIS.py:119-130)
 
-``inpaint_depth`` keeps cv2's Telea inpainting (``cv2.inpaint``), imported
-inside it, as are cv2's resize and polygon fill where they are reached: the
-``*_uoais`` readers' depth needs cv2 (the card machine has none; a cv2-free
-Telea is queued in ROADMAP). Their images and labels read without it.
+Nothing here imports OpenCV: ``inpaint_depth``'s resizes, dilation and
+Telea inpainting, the polygon fill and the OCID depth resize are
+``data/image_ops.py``'s operations, equal to OpenCV's, on the native host
+library (their numpy twins behind ``backend="numpy"``).
 """
 
 from __future__ import annotations
@@ -29,15 +29,8 @@ import numpy as np
 
 from ..config import COCO_PIXEL_MEAN_RGB, COCO_PIXEL_STD_RGB
 from ..utils.image_io import IMREAD_ANYDEPTH, imread, imread_indexed
+from . import image_ops
 from .datasets import _must_read, normalize_bgr, remap_labels
-
-
-def _cv2(what: str):
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(f"{what} needs cv2 (opencv-python), which is not installed") from e
-    return cv2
 
 
 def normalize_depth(depth_mm, min_val=250.0, max_val=1500.0):
@@ -50,15 +43,24 @@ def unnormalize_depth(depth_u8x3, min_val=250.0, max_val=1500.0):
     return np.float32(depth_u8x3) / 255 * (max_val - min_val) + min_val
 
 
-def inpaint_depth(depth_u8x3, factor=1, kernel_size=3, dilate=False):
-    cv2 = _cv2("inpaint_depth (Telea inpainting of the UOAIS depth)")
+def _resize_linear(img, h, w, backend):
+    """OpenCV's resize to (h, w), INTER_LINEAR; at the same size it returns
+    the pixels unchanged."""
+    if img.shape[:2] == (h, w):
+        return img.copy()
+    return image_ops.resize_linear_u8(img, h, w, backend=backend)
+
+
+def inpaint_depth(depth_u8x3, factor=1, kernel_size=3, dilate=False, backend="native"):
+    """Telea-inpaint the zero pixels of a normalized uint8 x3 depth (at 1 /
+    factor of its size), as the reference does with OpenCV."""
     H, W, _ = depth_u8x3.shape
-    resized = cv2.resize(depth_u8x3, (W // factor, H // factor))
+    resized = _resize_linear(depth_u8x3, H // factor, W // factor, backend)
     mask = np.all(resized == 0, axis=2).astype(np.uint8)
     if dilate:
-        mask = cv2.dilate(mask, np.ones((kernel_size, kernel_size), np.uint8), 1)
-    inpainted = cv2.inpaint(resized, mask, kernel_size, cv2.INPAINT_TELEA)
-    inpainted = cv2.resize(inpainted, (W, H))
+        mask = image_ops.dilate_u8(mask, kernel_size, backend=backend)
+    inpainted = image_ops.inpaint_telea(resized, mask, kernel_size, backend=backend)
+    inpainted = _resize_linear(inpainted, H, W, backend)
     return np.where(depth_u8x3 == 0, inpainted, depth_u8x3)
 
 
@@ -129,11 +131,10 @@ def ann_to_mask(ann, height, width):
     seg = ann["segmentation"]
     if isinstance(seg, dict):
         return rle_decode(seg)
-    cv2 = _cv2("a polygon segmentation (cv2.fillPoly)")
     mask = np.zeros((height, width), np.uint8)
     for poly in seg:
         pts = np.asarray(poly, np.float64).reshape(-1, 2)
-        cv2.fillPoly(mask, [np.round(pts).astype(np.int32)], 1)
+        image_ops.fill_poly(mask, np.round(pts).astype(np.int32), 1)
     return mask
 
 
@@ -227,7 +228,7 @@ class OCIDObjectUOAIS:
 
     def __getitem__(self, idx):
         filename = self.image_paths[idx]
-        # BGR -> RGB (cv2.cvtColor COLOR_BGR2RGB swaps the channels)
+        # BGR -> RGB (the reference's cvtColor COLOR_BGR2RGB swaps the channels)
         im = _must_read(filename)[..., ::-1].astype(np.float32)
         image = (im - np.asarray(COCO_PIXEL_MEAN_RGB, np.float32)) / np.asarray(
             COCO_PIXEL_STD_RGB, np.float32)
@@ -244,9 +245,7 @@ class OCIDObjectUOAIS:
         if self.input_type in ("DEPTH", "RGBD"):
             depth = _must_read(filename.replace("rgb", "depth"), IMREAD_ANYDEPTH).astype(np.float32)
             d3 = normalize_depth(depth)
-            if d3.shape[:2] != (480, 640):          # at 480x640 the resize is a copy
-                cv2 = _cv2("resizing the OCID depth")
-                d3 = cv2.resize(d3, (640, 480), interpolation=cv2.INTER_NEAREST)
+            d3 = image_ops.resize_nearest(d3, 480, 640)   # (:124) INTER_NEAREST
             d3 = inpaint_depth(d3) / 255.0          # (:125-128)
             sample["xyz"] = d3.astype(np.float32)
         return sample

@@ -26,7 +26,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "uoms_native.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
 BACKENDS = ("native", "numpy")
 
 _lib = None
@@ -105,6 +105,14 @@ def get_lib() -> ctypes.CDLL:
     lib.filter_line_u8.restype = None
     lib.ellipse_fill.argtypes = [u8, c.c_int, c.c_int, *[c.c_int] * 5, f32]
     lib.ellipse_fill.restype = None
+    lib.telea_inpaint_u8c3.argtypes = [u8, u8, c.c_int, c.c_int, c.c_int, u8]
+    lib.telea_inpaint_u8c3.restype = None
+    lib.dilate_u8.argtypes = [u8, c.c_int, c.c_int, c.c_int, c.c_int, u8]
+    lib.dilate_u8.restype = None
+    lib.fill_poly_u8.argtypes = [u8, c.c_int, c.c_int, i32, c.c_int, c.c_uint8]
+    lib.fill_poly_u8.restype = None
+    lib.resize_cubic_f32.argtypes = [f32, *hw, f32, c.c_int, c.c_int]
+    lib.resize_cubic_f32.restype = None
     _lib = lib
     return _lib
 
@@ -280,3 +288,50 @@ def ellipse_fill(mask: np.ndarray, center, axes, angle: int, sin_table: np.ndarr
     get_lib().ellipse_fill(mask, mask.shape[0], mask.shape[1], int(center[0]), int(center[1]),
                            int(axes[0]), int(axes[1]), int(angle),
                            np.ascontiguousarray(sin_table, dtype=np.float32))
+
+
+def telea_inpaint_u8c3(img, mask, radius: int) -> np.ndarray:
+    """cv2.inpaint(img, mask, radius, INPAINT_TELEA) of uint8 [H, W, 3]."""
+    a = np.ascontiguousarray(img, dtype=np.uint8)
+    m = np.ascontiguousarray(np.asarray(mask) != 0, dtype=np.uint8)
+    if a.ndim != 3 or a.shape[2] != 3 or min(a.shape[:2]) < 2 or m.shape != a.shape[:2]:
+        raise ValueError(f"a uint8 [H, W, 3] image of at least 2x2 (cv2 reads outside a "
+                         f"narrower one) and an [H, W] mask, got {a.shape} and {m.shape}")
+    out = np.empty_like(a)
+    get_lib().telea_inpaint_u8c3(a, m, a.shape[0], a.shape[1], int(radius), out)
+    return out
+
+
+def dilate_u8(img, kh: int, kw: int) -> np.ndarray:
+    """cv2.dilate(img, np.ones((kh, kw))) of uint8 [H, W]."""
+    a = np.ascontiguousarray(img, dtype=np.uint8)
+    if a.ndim != 2 or 0 in a.shape or kh < 1 or kw < 1:
+        raise ValueError(f"a uint8 [H, W] image and a kernel of at least 1x1, got {a.shape} "
+                         f"and {kh}x{kw}")
+    out = np.empty_like(a)
+    get_lib().dilate_u8(a, a.shape[0], a.shape[1], int(kh), int(kw), out)
+    return out
+
+
+def fill_poly_u8(mask: np.ndarray, pts, value: int = 1) -> None:
+    """In place: cv2.fillPoly(mask, [pts], value) of integer points [n, 2]
+    (x, y) into a C-contiguous uint8 [H, W] mask."""
+    if mask.dtype != np.uint8 or mask.ndim != 2 or not mask.flags["C_CONTIGUOUS"]:
+        raise ValueError("fill_poly_u8 draws into a C-contiguous uint8 [H, W] mask")
+    p = np.ascontiguousarray(pts, dtype=np.int32)
+    if p.ndim != 2 or p.shape[1] != 2 or len(p) == 0 or 0 in mask.shape:
+        raise ValueError(f"one or more (x, y) points [n, 2] and a non-empty mask, got points "
+                         f"{p.shape} and mask {mask.shape}")
+    if np.abs(p).max() >= 1 << 15 or not 0 <= int(value) <= 255:
+        raise ValueError(f"polygon coordinates within +-32767 (16-bit fixed point) and a "
+                         f"uint8 value, got |x|, |y| up to {np.abs(p).max()} and {value}")
+    get_lib().fill_poly_u8(mask, mask.shape[0], mask.shape[1], p, len(p), int(value))
+
+
+def resize_cubic_f32(img, dh: int, dw: int) -> np.ndarray:
+    """cv2.resize(img, (dw, dh), interpolation=INTER_CUBIC) of float32
+    [H, W(, C)], as cv2 computes it with IPP off."""
+    a, h, w, c = _hwc(img, np.float32, dh, dw)
+    out = np.empty((dh, dw) + a.shape[2:], np.float32)
+    get_lib().resize_cubic_f32(a, h, w, c, out, dh, dw)
+    return out

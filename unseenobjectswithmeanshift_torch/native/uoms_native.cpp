@@ -28,6 +28,7 @@
 #include <cfloat>
 #include <cmath>
 #include <new>
+#include <queue>
 #include <stdexcept>
 #include <string>
 #include <vector>
@@ -1361,6 +1362,401 @@ void ellipse_fill(uint8_t* mask, int h, int w, int cx, int cy, int ax, int ay, i
   }
   if (v.size() == 1) v.assign(2, {(int64_t)cx << kShift, (int64_t)cy << kShift});
   fill_convex(cv, v);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The UOAIS readers' image operations, as cv2 5.0 computes them:
+// cv2.inpaint(..., INPAINT_TELEA) on uint8 BGR, cv2.dilate with a
+// rectangle of ones, cv2.fillPoly of one integer polygon, and cv2.resize
+// INTER_CUBIC on float32 (the renderer's table mottle).
+namespace telea {
+
+enum { KNOWN = 0, BAND = 1, INSIDE = 2, CHANGE = 3 };
+
+// cv2's narrow-band queue: the least arrival time first, ties in push order
+struct Item {
+  float t;
+  int64_t order;
+  int i, j;
+};
+struct Later {
+  bool operator()(const Item& a, const Item& b) const {
+    return a.t > b.t || (a.t == b.t && a.order > b.order);
+  }
+};
+struct Queue {
+  std::priority_queue<Item, std::vector<Item>, Later> q;
+  int64_t pushed = 0;
+  void push(int i, int j, float t) { q.push({t, pushed++, i, j}); }
+  bool pop(int& i, int& j) {
+    if (q.empty()) return false;
+    i = q.top().i;
+    j = q.top().j;
+    q.pop();
+    return true;
+  }
+};
+
+// Arrival times T and flags f on the (h + 2) x (w + 2) padded grid.
+struct Grid {
+  int cols;
+  std::vector<float> t;
+  float T(int i, int j) const { return t[(size_t)i * cols + j]; }
+};
+
+// FastMarching_solve: the arrival time at a pixel from two of its neighbours
+float solve(const Grid& g, const uint8_t* f, int i1, int j1, int i2, int j2) {
+  const double a11 = g.T(i1, j1), a22 = g.T(i2, j2), m12 = std::min(a11, a22);
+  const bool in1 = f[(size_t)i1 * g.cols + j1] == INSIDE, in2 = f[(size_t)i2 * g.cols + j2] == INSIDE;
+  double sol;
+  if (!in1 && !in2)
+    sol = std::fabs(a11 - a22) >= 1.0 ? 1 + m12
+                                       : (a11 + a22 + std::sqrt(2 - (a11 - a22) * (a11 - a22))) * .5;
+  else if (!in1)
+    sol = 1 + a11;
+  else if (!in2)
+    sol = 1 + a22;
+  else
+    sol = 1 + m12;
+  return (float)sol;
+}
+
+float arrival(const Grid& g, const uint8_t* f, int i, int j) {
+  const float a = std::min(solve(g, f, i - 1, j, i, j - 1), solve(g, f, i + 1, j, i, j - 1));
+  const float c = std::min(solve(g, f, i - 1, j, i, j + 1), solve(g, f, i + 1, j, i, j + 1));
+  return std::min(a, c);
+}
+
+const int DI[4] = {-1, 0, 1, 0}, DJ[4] = {0, -1, 0, 1};
+
+}  // namespace telea
+
+namespace poly {
+
+const int kShift = 16;
+
+struct Edge {
+  int y0, y1;
+  int64_t x, dx;
+};
+
+// cv2's Line (LINE_8) through LineIterator: the segment clipped to the
+// image, Bresenham from its left end.
+void line8(uint8_t* m, int h, int w, int64_t x1, int64_t y1, int64_t x2, int64_t y2, uint8_t v) {
+  if (x1 < 0 || x1 >= w || x2 < 0 || x2 >= w || y1 < 0 || y1 >= h || y2 < 0 || y2 >= h)
+    if (!ellipse::clip_line(w, h, x1, y1, x2, y2)) return;
+  int64_t dx = x2 - x1, dy = y2 - y1, sy = 1;
+  if (dx < 0) {
+    dx = -dx;
+    dy = -dy;
+    std::swap(x1, x2);
+    std::swap(y1, y2);
+  }
+  if (dy < 0) {
+    dy = -dy;
+    sy = -1;
+  }
+  const bool vert = dy > dx;
+  if (vert) std::swap(dx, dy);
+  int64_t err = dx - 2 * dy, x = x1, y = y1;
+  for (int64_t n = 0; n <= dx; ++n) {
+    m[(size_t)y * w + x] = v;
+    const bool step = err < 0;
+    err += -2 * dy + (step ? 2 * dx : 0);
+    if (vert) {
+      y += sy;
+      x += step;
+    } else {
+      x += 1;
+      y += step ? sy : 0;
+    }
+  }
+}
+
+}  // namespace poly
+
+extern "C" {
+
+// cv2.inpaint(img, mask, radius, INPAINT_TELEA) of uint8 BGR [h, w, 3] into
+// out: the distance outside the holes by fast marching over the ring the
+// radius reaches (negated), then each hole pixel filled in arrival order
+// from its known neighbours within the radius, with cv2's direction, level
+// and distance weights (float sums, the level in double) and its
+// neighbour indexing at the image border.
+void telea_inpaint_u8c3(const uint8_t* img, const uint8_t* mask, int h, int w, int radius,
+                        uint8_t* out) {
+  using namespace telea;
+  const int rows = h + 2, cols = w + 2, range = std::max(1, std::min(100, radius));
+  const size_t n = (size_t)rows * cols;
+  std::memcpy(out, img, (size_t)h * w * 3);
+  std::vector<uint8_t> f(n, KNOWN), ring(n, KNOWN);
+  Grid g{cols, std::vector<float>(n, 1.0e6f)};
+  bool any = false;
+  for (int y = 0; y < h; ++y)
+    for (int x = 0; x < w; ++x)
+      if (mask[(size_t)y * w + x]) f[(size_t)(y + 1) * cols + x + 1] = INSIDE, any = true;
+  if (!any) return;
+  auto hole = [&](int i, int j) { return f[(size_t)i * cols + j] == INSIDE; };
+  // the band (a cross dilation of the holes less the holes) and the ring
+  // (a (2 range + 1)^2 dilation less both), the border excluded
+  std::vector<uint8_t> wide(n, 0);
+  for (int i = 0; i < rows; ++i)
+    for (int j = 0; j < cols; ++j)
+      if (hole(i, j)) {
+        for (int a = std::max(0, j - range); a <= std::min(cols - 1, j + range); ++a)
+          wide[(size_t)i * cols + a] = 1;
+      }
+  std::vector<uint8_t> square(n, 0);
+  for (int i = 0; i < rows; ++i)
+    for (int j = 0; j < cols; ++j)
+      if (wide[(size_t)i * cols + j])
+        for (int a = std::max(0, i - range); a <= std::min(rows - 1, i + range); ++a)
+          square[(size_t)a * cols + j] = 1;
+  Queue heap, outside;
+  for (int i = 1; i < rows - 1; ++i)
+    for (int j = 1; j < cols - 1; ++j) {
+      const size_t k = (size_t)i * cols + j;
+      if (hole(i, j)) continue;
+      if (hole(i - 1, j) || hole(i + 1, j) || hole(i, j - 1) || hole(i, j + 1)) {
+        f[k] = BAND;
+        g.t[k] = 0.f;
+        heap.push(i, j, 0.f);
+        outside.push(i, j, 0.f);
+      } else if (square[k]) {
+        ring[k] = INSIDE;
+      }
+    }
+  int ii, jj;
+  while (outside.pop(ii, jj)) {
+    ring[(size_t)ii * cols + jj] = CHANGE;
+    for (int q = 0; q < 4; ++q) {
+      const int i = ii + DI[q], j = jj + DJ[q];
+      if (i <= 0 || j <= 0 || i >= rows - 1 || j >= cols - 1) continue;
+      const size_t k = (size_t)i * cols + j;
+      if (ring[k] != INSIDE) continue;
+      const float d = arrival(g, ring.data(), i, j);
+      g.t[k] = d;
+      ring[k] = BAND;
+      outside.push(i, j, d);
+    }
+  }
+  for (size_t k = 0; k < n; ++k)
+    if (ring[k] == CHANGE) g.t[k] = -g.t[k];
+  auto F = [&](int i, int j) { return f[(size_t)i * cols + j]; };
+  auto O = [&](int i, int j, int c) { return (float)out[((size_t)i * w + j) * 3 + c]; };
+  while (heap.pop(ii, jj)) {
+    f[(size_t)ii * cols + jj] = KNOWN;
+    for (int q = 0; q < 4; ++q) {
+      const int i = ii + DI[q], j = jj + DJ[q];
+      if (i <= 0 || j <= 0 || i > rows - 1 || j > cols - 1 || F(i, j) != INSIDE) continue;
+      const float dist = arrival(g, f.data(), i, j);
+      g.t[(size_t)i * cols + j] = dist;
+      const float tij = g.T(i, j);
+      float gx, gy;
+      if (F(i, j + 1) != INSIDE)
+        gx = F(i, j - 1) != INSIDE ? (g.T(i, j + 1) - g.T(i, j - 1)) * 0.5f : g.T(i, j + 1) - tij;
+      else
+        gx = F(i, j - 1) != INSIDE ? tij - g.T(i, j - 1) : 0.f;
+      if (F(i + 1, j) != INSIDE)
+        gy = F(i - 1, j) != INSIDE ? (g.T(i + 1, j) - g.T(i - 1, j)) * 0.5f : g.T(i + 1, j) - tij;
+      else
+        gy = F(i - 1, j) != INSIDE ? tij - g.T(i - 1, j) : 0.f;
+      float Ia[3] = {0, 0, 0}, Jx[3] = {0, 0, 0}, Jy[3] = {0, 0, 0};
+      float s[3] = {1.0e-20f, 1.0e-20f, 1.0e-20f};
+      for (int k = std::max(i - range, 1); k <= std::min(i + range, rows - 2); ++k) {
+        const int km = k - 1 + (k == 1), kp = k - 1 - (k == rows - 2);
+        for (int l = std::max(j - range, 1); l <= std::min(j + range, cols - 2); ++l) {
+          if (F(k, l) == INSIDE || (l - j) * (l - j) + (k - i) * (k - i) > range * range) continue;
+          const int lm = l - 1 + (l == 1), lp = l - 1 - (l == cols - 2);
+          const float ry = (float)(i - k), rx = (float)(j - l), vl = rx * rx + ry * ry;
+          const float dst = (float)(1. / (vl * std::sqrt((double)vl)));
+          const float lev = (float)(1. / (1 + std::fabs((double)(g.T(k, l) - tij))));
+          float dir = rx * gx + ry * gy;
+          if (std::fabs(dir) <= 0.01) dir = 0.000001f;
+          const float wt = std::fabs(dst * lev * dir);
+          const bool right = F(k, l + 1) != INSIDE, left = F(k, l - 1) != INSIDE;
+          const bool down = F(k + 1, l) != INSIDE, up = F(k - 1, l) != INSIDE;
+          for (int c = 0; c < 3; ++c) {
+            float gix, giy;
+            if (right)
+              gix = left ? (O(km, lp + 1, c) - O(km, lm - 1, c)) * 2.0f : O(km, lp + 1, c) - O(km, lm, c);
+            else
+              gix = left ? O(km, lp, c) - O(km, lm - 1, c) : 0.f;
+            if (down)
+              giy = up ? (O(kp + 1, lm, c) - O(km - 1, lm, c)) * 2.0f : O(kp + 1, lm, c) - O(km, lm, c);
+            else
+              giy = up ? O(kp, lm, c) - O(km - 1, lm, c) : 0.f;
+            Ia[c] += wt * O(k - 1, l - 1, c);
+            Jx[c] -= wt * (gix * rx);
+            Jy[c] -= wt * (giy * ry);
+            s[c] += wt;
+          }
+        }
+      }
+      for (int c = 0; c < 3; ++c) {
+        const float sat = Ia[c] / s[c] +
+                          (Jx[c] + Jy[c]) / (std::sqrt(Jx[c] * Jx[c] + Jy[c] * Jy[c]) + 1.0e-20f) + 0.5f;
+        out[((size_t)(i - 1) * w + j - 1) * 3 + c] =
+            (uint8_t)std::min(255L, std::max(0L, std::lrint(sat)));
+      }
+      f[(size_t)i * cols + j] = BAND;
+      heap.push(i, j, dist);
+    }
+  }
+}
+
+// cv2.dilate(src, np.ones((kh, kw)), anchor at the centre) of uint8 [h, w]:
+// the maximum over the window's pixels inside the image.
+void dilate_u8(const uint8_t* src, int h, int w, int kh, int kw, uint8_t* dst) {
+  std::vector<uint8_t> rowmax((size_t)h * w);
+  const int ax = kw / 2, ay = kh / 2;
+  for (int y = 0; y < h; ++y)
+    for (int x = 0; x < w; ++x) {
+      uint8_t v = 0;
+      for (int a = std::max(0, x - ax); a <= std::min(w - 1, x - ax + kw - 1); ++a)
+        v = std::max(v, src[(size_t)y * w + a]);
+      rowmax[(size_t)y * w + x] = v;
+    }
+  for (int y = 0; y < h; ++y)
+    for (int x = 0; x < w; ++x) {
+      uint8_t v = 0;
+      for (int a = std::max(0, y - ay); a <= std::min(h - 1, y - ay + kh - 1); ++a)
+        v = std::max(v, rowmax[(size_t)a * w + x]);
+      dst[(size_t)y * w + x] = v;
+    }
+}
+
+// cv2.fillPoly(mask, [pts], value) (LINE_8, no shift) of n integer points
+// (x, y) into uint8 [h, w]: each edge's outline by Line, then the scanlines
+// between pairs of active edges, from the ceiling of the left x to the floor
+// of the right x. An edge that leaves the image runs along its clipped
+// segment, and along the clipped end's column where the clipped segment is
+// one row.
+void fill_poly_u8(uint8_t* mask, int h, int w, const int32_t* pts, int n, uint8_t value) {
+  using namespace poly;
+  const int64_t one = (int64_t)1 << kShift;
+  std::vector<Edge> edges;
+  int64_t px = pts[2 * (n - 1)], py = pts[2 * (n - 1) + 1];
+  for (int i = 0; i < n; ++i) {
+    const int64_t qx = pts[2 * i], qy = pts[2 * i + 1];
+    line8(mask, h, w, px, py, qx, qy, value);
+    int64_t x0 = px << kShift, y0 = py, x1 = qx << kShift, y1 = qy;
+    if (px < 0 || px >= w || qx < 0 || qx >= w || py < 0 || py >= h || qy < 0 || qy >= h) {
+      int64_t a = px, b = py, c = qx, d = qy;
+      ellipse::clip_line(w, h, a, b, c, d);
+      x0 = a << kShift, y0 = b, x1 = c << kShift, y1 = d;
+    }
+    if (py != qy) {
+      Edge e;
+      e.dx = y1 != y0 ? (x1 - x0) / (y1 - y0) : 0;
+      if (py < qy)
+        e.y0 = (int)py, e.y1 = (int)qy, e.x = x0 + (py - y0) * e.dx;
+      else
+        e.y0 = (int)qy, e.y1 = (int)py, e.x = x1 + (qy - y1) * e.dx;
+      edges.push_back(e);
+    }
+    px = qx, py = qy;
+  }
+  if (edges.size() < 2) return;
+  int ymin = INT_MAX, ymax = INT_MIN;
+  int64_t xmin = INT64_MAX, xmax = -1;
+  for (const Edge& e : edges) {
+    const int64_t xe = e.x + (int64_t)(e.y1 - e.y0) * e.dx;
+    ymin = std::min(ymin, e.y0), ymax = std::max(ymax, e.y1);
+    xmin = std::min({xmin, e.x, xe}), xmax = std::max({xmax, e.x, xe});
+  }
+  if (ymax < 0 || ymin >= h || xmax < 0 || xmin >= ((int64_t)w << kShift)) return;
+  std::stable_sort(edges.begin(), edges.end(), [](const Edge& a, const Edge& b) {
+    return a.y0 != b.y0 ? a.y0 < b.y0 : a.x != b.x ? a.x < b.x : a.dx < b.dx;
+  });
+  ymax = std::min(ymax, h);
+  std::vector<Edge> active, merged;
+  size_t next = 0;
+  for (int y = edges[0].y0; y < ymax; ++y) {
+    merged.clear();
+    size_t a = 0;
+    std::vector<Edge> live;
+    for (const Edge& e : active)
+      if (e.y1 != y) live.push_back(e);
+    for (; next < edges.size() && edges[next].y0 == y; ++next) {
+      while (a < live.size() && live[a].x < edges[next].x) merged.push_back(live[a++]);
+      merged.push_back(edges[next]);
+    }
+    for (; a < live.size(); ++a) merged.push_back(live[a]);
+    active.swap(merged);
+    for (size_t k = 0; k + 1 < active.size(); k += 2) {
+      if (y >= 0) {
+        const int64_t l = std::min(active[k].x, active[k + 1].x);
+        const int64_t r = std::max(active[k].x, active[k + 1].x);
+        const int64_t x1 = (l + one - 1) >> kShift, x2 = r >> kShift;
+        if (x1 < w && x2 >= 0)
+          for (int64_t x = std::max<int64_t>(x1, 0); x <= std::min<int64_t>(x2, w - 1); ++x)
+            mask[(size_t)y * w + x] = value;
+      }
+      active[k].x += active[k].dx;
+      active[k + 1].x += active[k + 1].dx;
+    }
+    std::stable_sort(active.begin(), active.end(),
+                     [](const Edge& p, const Edge& q) { return p.x < q.x; });
+  }
+}
+
+// cv2.resize(src, (dw, dh), interpolation=INTER_CUBIC) of float32 [h, w, c]
+// with cv2's own code (IPP off): float coefficients, float horizontal sums
+// left to right; the vertical sums in 4-lane blocks as its SIMD code adds
+// them, b0 S0 + (b1 S1 + (b2 S2 + b3 S3)), and the remaining columns left
+// to right.
+void resize_cubic_f32(const float* src, int h, int w, int c, float* dst, int dh, int dw) {
+  const double sx_scale = 1.0 / ((double)dw / w), sy_scale = 1.0 / ((double)dh / h);
+  std::vector<int> xt((size_t)dw * 4);
+  std::vector<float> xc((size_t)dw * 4);
+  for (int x = 0; x < dw; ++x) {
+    int s;
+    float f;
+    imgops::src_pos(x, sx_scale, s, f);
+    imgops::cubic_coeffs(f, &xc[x * 4]);
+    for (int k = 0; k < 4; ++k) xt[x * 4 + k] = std::min(std::max(s - 1 + k, 0), w - 1);
+  }
+  std::vector<float> hbuf((size_t)h * dw * c);
+  for (int y = 0; y < h; ++y) {
+    const float* row = src + (size_t)y * w * c;
+    for (int x = 0; x < dw; ++x)
+      for (int k = 0; k < c; ++k) {
+        const int* t = &xt[x * 4];
+        const float* a = &xc[x * 4];
+        float v = row[t[0] * c + k] * a[0];
+        v += row[t[1] * c + k] * a[1];
+        v += row[t[2] * c + k] * a[2];
+        v += row[t[3] * c + k] * a[3];
+        hbuf[((size_t)y * dw + x) * c + k] = v;
+      }
+  }
+  const int width = dw * c, vec = width / 4 * 4;
+  for (int y = 0; y < dh; ++y) {
+    int s;
+    float f, b[4];
+    imgops::src_pos(y, sy_scale, s, f);
+    imgops::cubic_coeffs(f, b);
+    const float* r[4];
+    for (int k = 0; k < 4; ++k)
+      r[k] = &hbuf[(size_t)std::min(std::max(s - 1 + k, 0), h - 1) * width];
+    float* o = dst + (size_t)y * width;
+    for (int i = 0; i < vec; ++i) {
+      const float t3 = b[3] * r[3][i];
+      const float t2 = b[2] * r[2][i] + t3;
+      const float t1 = b[1] * r[1][i] + t2;
+      o[i] = b[0] * r[0][i] + t1;
+    }
+    for (int i = vec; i < width; ++i) {
+      float v = r[0][i] * b[0];
+      v += r[1][i] * b[1];
+      v += r[2][i] * b[2];
+      v += r[3][i] * b[3];
+      o[i] = v;
+    }
+  }
 }
 
 }  // extern "C"
