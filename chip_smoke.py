@@ -218,6 +218,28 @@ Phases, each followed by a ``phase=<name> seconds=<t>`` line:
             least one such batch each; then
             cli.test_net.main through its argv on both trees and with
             --ucn (random weights; launches counted).
+34. train_standard_check  one full-width train step of uoais_resnet50
+            (ResNet50, frozen BatchNorm, MSDeformAttn pixel decoder, 9-layer
+            3-level decoder) at 128x160 and of tabletop_swin at 224^2, B=2,
+            on the card against a CPU copy (TRAIN_CPU_TOL; the offset
+            kernels drawn off zero, whose sampling points sit on integer
+            taps, see train_cpu_agreement; the Swin step is ill-conditioned
+            at seed-0 weights and printed, its Swin-T's res2..res5 and every
+            gradient held to SWIN_VJP_TOL instead); the MSDeformAttn
+            core at the 480x640 encoder's shapes, output and gradients in
+            fp32 against fp64 (MSDA_GRAD_TOL), whether two fp32 backward
+            passes are bit-equal, its forward and backward ms.
+35. train_standard_main  uoais_resnet50 and tabletop_swin through Trainer at
+            480x640, B=4, 8 steps on a fixed batch (median step ms after 2
+            warm-ups, peak memory; gates: finite, no skip, the loss falls;
+            the ResNet50's 212 frozen BatchNorm buffers torch.equal before
+            and after); crop_tabletop_resnet50_rgb on 224^2 SYN_CROP crops;
+            3 bf16 uoais_resnet50 steps, step 0 within 5% of fp32's; the
+            trained uoais_resnet50 pair saved, restored (weights and AdamW
+            state equal) and served through build_two_stage_predictor
+            ("uoais_resnet50", checkpoint=...): 9 + 9 cross-attention
+            launches (stage 2 refines decisive_predictor's crops of the
+            frame when the briefly trained network finds none; printed).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure ends the run with a
@@ -244,6 +266,7 @@ import torch.nn.functional as F
 from unseenobjectswithmeanshift_torch.config import get_config
 from unseenobjectswithmeanshift_torch.data.synthetic_device import SyntheticDeviceLoader
 from unseenobjectswithmeanshift_torch.models import decoder as decoder_module
+from unseenobjectswithmeanshift_torch.models.backbone_resnet import FrozenBatchNorm2d
 from unseenobjectswithmeanshift_torch.models.position_encoding import position_embedding_sine
 from unseenobjectswithmeanshift_torch.ops import _build
 from unseenobjectswithmeanshift_torch.ops.fused_cross_attention import (
@@ -261,6 +284,7 @@ from unseenobjectswithmeanshift_torch.ops import mean_shift_kernels as mean_shif
 from unseenobjectswithmeanshift_torch.ops.mean_shift import (
     connected_components_plain, connected_components_sweep, seed_adjacency, seed_hill_climbing,
 )
+from unseenobjectswithmeanshift_torch.ops.ms_deform_attn import MSDeformAttn, ms_deform_attn_core
 from unseenobjectswithmeanshift_torch.ops.mean_shift_kernels import (
     device_limits, fps_plan, fps_seeds, fps_seeds_plain, mean_shift_seeds, mean_shift_seeds_plain,
 )
@@ -2309,35 +2333,91 @@ def grad_norm(model):
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))).item()
 
 
-def train_cpu_agreement(results):
-    """One train step's forward and backward of the full-width
-    tabletop_pretrained network at 96x128, B=2, on a batch the port's
-    renderer made on the card: loss terms and the global gradient norm on
-    the card against a CPU copy (TRAIN_CPU_TOL)."""
-    cfg = get_config("tabletop_pretrained")
+def train_cpu_agreement(results, preset="tabletop_pretrained", hw=(96, 128),
+                        tag="train_check", off_taps=False, gate=True):
+    """One train step's forward and backward of the full-width network of
+    ``preset`` at hw, B=2, on a batch the port's renderer made on the card:
+    loss terms and the global gradient norm on the card against a CPU copy
+    (TRAIN_CPU_TOL; printed only when not gate); the parameter whose
+    gradient deviates most, against the largest gradient entry, is printed.
+
+    off_taps: first draw the MSDeformAttn offset kernels from N(0, 0.3^2)
+    (seeded). The init zeroes them (the reference's), which puts every
+    sampling point exactly on an integer tap, where bilinear sampling has no
+    derivative in the location: which one-sided derivative a backend takes
+    depends on how it rounds loc * size - 0.5, and so may the offsets'
+    gradient (the JAX package and the port on the CPU do, which
+    tests/test_torch_train_standard.py avoids the same way)."""
+    cfg = get_config(preset)
     tr = Trainer(cfg, device="cuda", seed=0)
-    batch = SyntheticDeviceLoader(2, height=96, width=128, max_gt=cfg.loss.max_gt_instances,
-                                  seed=0).batch_at(0)
+    if off_taps:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        with torch.no_grad():
+            for m in tr.model.modules():
+                if isinstance(m, MSDeformAttn):
+                    m.sampling_offsets.weight.normal_(0.0, 0.3, generator=gen)
+    batch = SyntheticDeviceLoader(2, height=hw[0], width=hw[1],
+                                  max_gt=cfg.loss.max_gt_instances, seed=0).batch_at(0)
     draws = tr.draws(batch)
     cpu = Trainer(cfg, device="cpu", seed=0, model=copy.deepcopy(tr.model).cpu())
     total, losses = tr.gradients(batch, draws)
     want_total, want = cpu.gradients({k: v.cpu() for k, v in batch.items()}, draws.to("cpu"))
-    dev = {k: abs(float(losses[k]) - float(want[k])) / max(abs(float(want[k])), 1e-3)
+    dev = {k: abs(float(losses[k].detach()) - float(want[k])) / max(abs(float(want[k])), 1e-3)
            for k in want}
     dev["total_loss"] = abs(float(total.detach()) - float(want_total)) / abs(float(want_total))
     norms = grad_norm(tr.model), grad_norm(cpu.model)
     dev["grad_norm"] = abs(norms[0] - norms[1]) / norms[1]
     worst = max(dev, key=dev.get)
+    pairs = [(n, a.grad, b.grad) for (n, a), (_, b) in zip(tr.model.named_parameters(),
+                                                           cpu.model.named_parameters())
+             if a.grad is not None]
+    top = max(float(b.abs().max()) for _, _, b in pairs)
+    leaf = max((float((a.cpu() - b).abs().max()) / top, n) for n, a, b in pairs)
     results["cpu_agreement"] = {"total_loss": float(total), "grad_norm": norms[0],
-                                "deviation": dev}
+                                "deviation": dev, "worst_gradient_leaf": leaf,
+                                "offsets_off_taps": off_taps, "gated": gate}
     total = total.detach()
-    sync_print(f"train_check full width 96x128 B=2: total_loss card {float(total):.6f} cpu "
+    sync_print(f"{tag} {preset} full width {hw[0]}x{hw[1]} B=2: total_loss card "
+               f"{float(total):.6f} cpu "
                f"{float(want_total):.6f}, grad_norm card {norms[0]:.6f} cpu {norms[1]:.6f}; "
-               f"worst relative deviation {dev[worst]:.2e} ({worst}; tol {TRAIN_CPU_TOL:.0e}; "
-               f"{len(want)} loss terms)")
-    if dev[worst] > TRAIN_CPU_TOL:
+               f"worst relative deviation {dev[worst]:.2e} ({worst}; tol {TRAIN_CPU_TOL:.0e}"
+               f"{'' if gate else ', printed, not gated'}; {len(want)} loss terms); worst "
+               f"gradient leaf {leaf[1]} {leaf[0]:.2e} of the largest gradient entry (printed)")
+    if gate and dev[worst] > TRAIN_CPU_TOL:
         raise AssertionError("the train step on the card disagrees with its CPU copy")
     return tr, batch
+
+
+def swin_vjp_check(results, hw=(224, 224), B=2):
+    """The full-width Swin-T of tabletop_swin (seed-0 weights): res2..res5
+    and the gradients of a seeded cotangent with respect to every parameter
+    and the image, on the card against a CPU copy, each within
+    SWIN_VJP_TOL of its scale."""
+    model = new_model(get_config("tabletop_swin"), 0, "cuda").backbone
+    cpu = copy.deepcopy(model).cpu()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    image = torch.randn(B, 3, *hw, generator=g, device="cuda")
+    with torch.no_grad():
+        cots = {k: torch.randn(v.shape, generator=g, device="cuda")
+                for k, v in model(image).items()}
+    outs = {}
+    for tag, m, dev in (("card", model, "cuda"), ("cpu", cpu, "cpu")):
+        x = image.to(dev).clone().requires_grad_()
+        out = m(x)
+        sum((out[k] * cots[k].to(dev)).sum() for k in out).backward()
+        outs[tag] = ({k: v.detach() for k, v in out.items()}, x.grad,
+                     {n: p.grad for n, p in m.named_parameters()})
+    (fa, xa, ga), (fb, xb, gb) = outs["card"], outs["cpu"]
+    dev = {k: scale_dev(fa[k], fb[k]) for k in fb}
+    dev["d_image"] = scale_dev(xa, xb)
+    leaf = max((scale_dev(ga[n], gb[n]), n) for n in gb)
+    dev["d_params_worst_leaf"] = leaf[0]
+    results["swin_vjp_vs_cpu"] = {"deviation": dev, "worst_leaf": leaf[1]}
+    sync_print(f"train_standard_check Swin-T {hw[0]}x{hw[1]} B={B} card vs CPU: "
+               + " ".join(f"{k}={v:.2e}" for k, v in dev.items())
+               + f" (worst parameter gradient {leaf[1]}; tol {SWIN_VJP_TOL:.0e})")
+    if max(dev.values()) > SWIN_VJP_TOL:
+        raise AssertionError("Swin-T's forward or gradients on the card disagree with the CPU")
 
 
 def twopass_check(results, K=40000):
@@ -2429,15 +2509,17 @@ def train_steps(tag, cfg, batch, steps, warmup=TRAIN_WARMUP, model=None, gate=Tr
     return tr, summary
 
 
-def serve_checkpoints(results, whole, crop):
+def serve_checkpoints(results, whole, crop, preset="tabletop_pretrained", layers=6,
+                      tag="train_main"):
     """Save both trained networks with checkpoint_io, restore them into fresh
-    trainers (equal state), and serve one 480x640 frame through
-    build_two_stage_predictor(checkpoint=..., checkpoint_crop=...): 6
-    cross-attention launches in stage 1 and 6 in stage 2. Eight steps from
-    random weights leave every mask of this frame empty (measured: no
-    instance, even made decisive as main's), so when stage 1 gives no crop,
-    the served crop network refines the crops that main's decisive stage 1
-    cuts from the same frame."""
+    trainers (equal state, optimizer and step), and serve one 480x640 frame
+    through build_two_stage_predictor(preset, checkpoint=...,
+    checkpoint_crop=...): `layers` cross-attention launches in stage 1 and
+    as many in stage 2. Eight steps from random weights leave every mask of
+    this frame empty (measured: no instance, even made decisive as main's),
+    so when stage 1 gives no crop, the served crop network refines the crops
+    that the preset's decisive stage 1 (decisive_predictor) cuts from the
+    same frame. -> the launches, crops and where they came from."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as d:
@@ -2448,12 +2530,19 @@ def serve_checkpoints(results, whole, crop):
             assert checkpoint_io.restore(path, fresh) == tr.step
             assert all(torch.equal(v, fresh.model.state_dict()[k])
                        for k, v in tr.model.state_dict().items()), "restore changed the weights"
+            sa, sb = tr.optimizer.state_dict()["state"], fresh.optimizer.state_dict()["state"]
+            assert sa.keys() == sb.keys() and all(
+                torch.equal(v, sb[i][n]) for i, st in sa.items() for n, v in st.items()), \
+                "restore changed the optimizer state"
             paths.append(path)
-        pred = build_two_stage_predictor(checkpoint=paths[0], checkpoint_crop=paths[1])
+            del fresh
+        pred = build_two_stage_predictor(preset, checkpoint=paths[0], checkpoint_crop=paths[1])
+        assert pred.cfg_crop.name == crop.cfg.name, pred.cfg_crop.name
     for model, tr in ((pred.model, whole), (pred.model_crop, crop)):
         assert all(torch.equal(v, model.state_dict()[k])
                    for k, v in tr.model.state_dict().items()), "the served weights differ"
     image, xyz = synthetic_rgbd(seed=0)
+    xyz = xyz if pred.cfg.use_depth else None
     zero_counts()
     s1 = pred.stage1(image, xyz)
     torch.cuda.synchronize()
@@ -2461,19 +2550,21 @@ def serve_checkpoints(results, whole, crop):
     crops = int(sum(int(c.present.sum()) for c in s1.crops))
     source = "trained stage 1"
     if not crops:
-        s1 = decisive_predictor(seed=0).stage1(image, xyz)
+        s1 = decisive_predictor(seed=0, preset=preset).stage1(image, xyz)
         crops = int(sum(int(c.present.sum()) for c in s1.crops))
-        source = "main's decisive stage 1"
+        source = f"decisive_predictor(preset={preset!r}) stage 1"
     torch.cuda.synchronize()
     before = fused_uoms_cross_attention.launches
     refined = pred.refine(s1)
     torch.cuda.synchronize()
     n2 = fused_uoms_cross_attention.launches - before
     serve = {"launches_stage1": n1, "launches_stage2": n2, "crops": crops, "crops_from": source,
-             "refined_instances": int((refined.unique() >= 1).sum())}
+             "refined_instances": int((refined.unique() >= 1).sum()),
+             "preset": preset, "crop_preset": pred.cfg_crop.name}
     results["serve_after_train"] = serve
-    sync_print(f"train_main serve after train: {serve}")
-    assert n1 == 6 and n2 == 6 and crops >= 1, f"serve-after-train launches {n1} + {n2}"
+    sync_print(f"{tag} serve after train: {serve}")
+    assert n1 == layers and n2 == layers and crops >= 1, \
+        f"serve-after-train launches {n1} + {n2}, expected {layers} each"
     assert refined.shape == (1, 480, 640) and refined.dtype == torch.int32
     return serve
 
@@ -2542,6 +2633,162 @@ def train_main_phase(results, weights=None):
         torch.cuda.empty_cache()
         finetune_from(results, weights)
     return results
+
+
+# Standard-backbone training (ResNet50 / Swin through the Trainer, the JAX
+# Trainer's build_model). Like the UCN-backbone step it runs no Pallas kernel
+# in either package (the decoder's unfused path); the trained networks, once
+# served, run row 1's kernel, 9 + 9 launches a frame. The step on the card is
+# held to its CPU copy (TRAIN_CPU_TOL), the MSDeformAttn core's gradients to
+# fp64.
+#
+# MSDA_GRAD_TOL: the core's output and its gradients with respect to value,
+# sampling_locations and attention_weights, fp32 on the card against fp64 on
+# the card, each within 1e-5 of its scale. The sampling points lie 0.15-0.85
+# of a pixel past an integer tap, so fp32 and fp64 take the same floor and
+# the bilinear weights are smooth there; a wrong tap or weight shows as O(1).
+MSDA_GRAD_TOL = 1e-5
+# SWIN_VJP_TOL: Swin-T's res2..res5 and its gradients (every parameter, the
+# image) on the card against the CPU copy, each within 1e-4 of its scale:
+# fp32 sums in other orders through 12 blocks (the features 3.7e-7 to
+# 1.6e-6 apart). The whole tabletop_swin step is printed, not gated,
+# against its CPU copy: at seed-0 weights the Swin's res5 features are
+# nearly constant across positions (a GroupNorm group's std down to 4.3e-3
+# of its mean after the pixel decoder's input projection), so that
+# GroupNorm turns the features' 1.9e-6 into 4.7e-3 and the kappa-30
+# decoder into 0.33 of a head's mask embed, and the CPU copy against
+# itself at 8 and 1 threads moves a loss term by 4.0e-3 and the gradient
+# norm by 1.5e-3 (scripts/train_step_conditioning.py on the card's
+# machine; the ResNet50 step: 2.2e-5 after that GroupNorm, 1.0e-5). The
+# rest of the step is held by uoais_resnet50's (TRAIN_CPU_TOL).
+SWIN_VJP_TOL = 1e-4
+STD_TRAIN_CHECKS = {"uoais_resnet50": (128, 160), "tabletop_swin": (224, 224)}
+STD_ENCODER_LEVELS = ((15, 20), (30, 40), (60, 80))     # res5..res3 at 480x640
+
+
+def frozen_bn_buffers(model):
+    """Copies of every FrozenBatchNorm2d buffer of a model, by name."""
+    return {f"{n}.{b}": buf.clone() for n, m in model.named_modules()
+            if isinstance(m, FrozenBatchNorm2d) for b, buf in m.named_buffers()}
+
+
+def msda_grad_check(results, B=TRAIN_BATCH, heads=8, D=8, points=4):
+    """The MSDeformAttn core at the uoais_resnet50 encoder's shapes at
+    480x640, B=4 (levels 15x20, 30x40, 60x80: 6,300 queries over 6,300
+    values; 8 heads of 8 channels; 4 points a level): output and gradients
+    in fp32 against fp64 (MSDA_GRAD_TOL); a second fp32 backward compared
+    bit for bit with the first (grid_sample's backward adds into the value
+    gradient with atomics); ms of the fp32 forward and of forward + backward."""
+    shapes = list(STD_ENCODER_LEVELS)
+    Lq = sum(h * w for h, w in shapes)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    value = torch.randn(B, Lq, heads, D, generator=g, device="cuda")
+    loc = torch.empty(B, Lq, heads, len(shapes), points, 2, device="cuda")
+    for lvl, (h, w) in enumerate(shapes):
+        for axis, n in ((0, w), (1, h)):
+            px = (torch.randint(-1, n + 1, (B, Lq, heads, points), generator=g, device="cuda")
+                  + 0.15 + 0.7 * torch.rand(B, Lq, heads, points, generator=g, device="cuda"))
+            loc[..., lvl, :, axis] = (px + 0.5) / n
+    aw = torch.rand(B, Lq, heads, len(shapes), points, generator=g, device="cuda")
+    cot = torch.randn(B, Lq, heads * D, generator=g, device="cuda")
+
+    def run(dtype):
+        xs = [x.to(dtype).clone().requires_grad_() for x in (value, loc, aw)]
+        out = ms_deform_attn_core(xs[0], shapes, *xs[1:])
+        (out * cot.to(dtype)).sum().backward()
+        return [out.detach()] + [x.grad for x in xs]
+
+    r32, r64, again = run(torch.float32), run(torch.float64), run(torch.float32)
+    names = ("out", "d_value", "d_sampling_locations", "d_attention_weights")
+    dev = {n: scale_dev(a, b) for n, a, b in zip(names, r32, r64)}
+    repro = {n: torch.equal(a, b) for n, a, b in zip(names, r32, again)}
+    xs = [x.clone().requires_grad_() for x in (value, loc, aw)]
+    fwd_ms = time_ms(lambda: ms_deform_attn_core(value, shapes, loc, aw))
+    both_ms = time_ms(lambda: torch.autograd.backward(
+        ms_deform_attn_core(xs[0], shapes, *xs[1:]), cot))
+    results["msda_core"] = {"vs_fp64": dev, "fp32_backward_bit_equal": repro,
+                            "forward_ms": fwd_ms, "forward_backward_ms": both_ms,
+                            "shape": {"B": B, "Lq": Lq, "heads": heads, "D": D,
+                                      "points": points, "levels": shapes}}
+    sync_print(f"train_standard_check MSDeformAttn core B={B} Lq={Lq} levels {shapes}: fp32 vs "
+               "fp64 " + " ".join(f"{k}={v:.2e}" for k, v in dev.items())
+               + f" (tol {MSDA_GRAD_TOL:.0e}); two fp32 backward passes bit-equal {repro}; "
+               f"forward_ms={fwd_ms:.3f} forward_backward_ms={both_ms:.3f}")
+    if max(dev.values()) > MSDA_GRAD_TOL:
+        raise AssertionError("the MSDeformAttn core's gradients on the card disagree with fp64")
+
+
+def train_standard_check_phase():
+    """34. one full-width train step of uoais_resnet50 at 128x160 and of
+    tabletop_swin at 224^2, B=2, on the card against a CPU copy (the
+    deformable attention's offset kernels drawn off zero: off_taps; the
+    Swin step printed, its backbone's forward and gradients gated,
+    SWIN_VJP_TOL); the MSDeformAttn core's gradients against fp64."""
+    results = {}
+    for preset, hw in STD_TRAIN_CHECKS.items():
+        tr, _ = train_cpu_agreement(results.setdefault(preset, {}), preset, hw,
+                                    tag="train_standard_check", off_taps=True,
+                                    gate=preset != "tabletop_swin")
+        del tr
+        torch.cuda.empty_cache()
+    swin_vjp_check(results["tabletop_swin"])
+    msda_grad_check(results)
+    return results
+
+
+def train_standard_main_phase(results):
+    """35. standard-backbone training at full width through Trainer:
+    uoais_resnet50 and tabletop_swin at 480x640, B=4, 8 steps on a fixed
+    SyntheticDeviceLoader batch, the ResNet50's frozen BatchNorm buffers
+    equal before and after; crop_tabletop_resnet50_rgb on 224^2 SYN_CROP
+    crops; 3 bf16 uoais_resnet50 steps against fp32's first; the trained
+    uoais_resnet50 pair saved, restored and served (9 + 9 launches).
+    -> the served launches of row 1."""
+    G = get_config("uoais_resnet50").loss.max_gt_instances
+    batch = SyntheticDeviceLoader(TRAIN_BATCH, *TRAIN_HW, max_gt=G, seed=0).batch_at(0)
+    whole = None
+    for preset in ("uoais_resnet50", "tabletop_swin"):
+        cfg = get_config(preset)
+        model = new_model(cfg, 0, "cuda")
+        frozen = frozen_bn_buffers(model)
+        tr, results[preset] = train_steps(f"standard {preset} fp32", cfg, batch, TRAIN_STEPS,
+                                          model=model)
+        after = frozen_bn_buffers(tr.model)
+        equal = frozen.keys() == after.keys() and all(torch.equal(v, after[k])
+                                                      for k, v in frozen.items())
+        results[preset].update(frozen_bn_buffers=len(frozen), frozen_bn_equal=equal)
+        sync_print(f"train_standard_main {preset}: {len(frozen)} frozen BatchNorm buffers, "
+                   f"equal after {TRAIN_STEPS} steps: {equal}")
+        if not equal or len(frozen) != (4 * 53 if preset == "uoais_resnet50" else 0):
+            raise AssertionError(f"train_standard_main {preset}: the frozen BatchNorm changed")
+        if preset == "uoais_resnet50":
+            whole = tr
+        del tr, model
+        torch.cuda.empty_cache()
+    crop_cfg = get_config("crop_tabletop_resnet50_rgb")
+    crop_batch = SyntheticDeviceLoader(TRAIN_BATCH, max_gt=G, seed=0, syn_crop=True,
+                                       crop_size=CROP_HW).batch_at(0)
+    crop, results["crop_tabletop_resnet50_rgb"] = train_steps(
+        "standard crop_tabletop_resnet50_rgb fp32", crop_cfg, crop_batch, TRAIN_STEPS)
+    cfg16 = get_config("uoais_resnet50")
+    cfg16.dtype = "bfloat16"
+    tr16, results["uoais_resnet50_bf16"] = train_steps(
+        "standard uoais_resnet50 bf16", cfg16, batch, BF16_STEPS, warmup=1, gate=False)
+    first32 = results["uoais_resnet50"]["first"]["total_loss"]
+    first16 = results["uoais_resnet50_bf16"]["first"]["total_loss"]
+    rel = abs(first16 - first32) / abs(first32)
+    results["uoais_resnet50_bf16"]["step0_vs_fp32"] = rel
+    sync_print(f"train_standard_main bf16 step 0 total_loss {first16:.4f} vs fp32 "
+               f"{first32:.4f}: relative {rel:.2e} (tol 5e-2)")
+    finite = all(math.isfinite(v) for v in results["uoais_resnet50_bf16"]["total_loss"])
+    if not finite or rel > 0.05 or results["uoais_resnet50_bf16"]["skipped"]:
+        raise AssertionError("bf16 standard training is not finite or its first loss is off "
+                             "fp32's")
+    del tr16
+    torch.cuda.empty_cache()
+    serve = serve_checkpoints(results, whole, crop, preset="uoais_resnet50", layers=9,
+                              tag="train_standard_main")
+    return serve["launches_stage1"] + serve["launches_stage2"]
 
 
 # Dataset evaluation (cli/test_net.py). The card machine has neither cv2 nor
@@ -4184,6 +4431,17 @@ def main(argv=None):
         uoais_results["main"] = uoais_main_phase({})
         torch.cuda.empty_cache()
         phase_done("uoais_main", t0)
+
+    # 34-35. standard-backbone training
+    t0 = time.perf_counter()
+    std_train = {"check": train_standard_check_phase()}
+    torch.cuda.empty_cache()
+    phase_done("train_standard_check", t0)
+    t0 = time.perf_counter()
+    std_train["main"] = {}
+    std_launches = train_standard_main_phase(std_train["main"])
+    torch.cuda.empty_cache()
+    phase_done("train_standard_main", t0)
     ev = eval_results["main"]
     eval_fp32 = sum(ev[k]["launches"]["fused_uoms_cross_attention"]
                     for k in ("msmformer_ocid", "msmformer_osd"))
@@ -4202,10 +4460,11 @@ def main(argv=None):
         "route": "cuda",
         "source": "unseenobjectswithmeanshift_torch/csrc/fused_cross_attention.cu",
         "replaces": "unseenobjectswithmeanshift_tpu/ops/fused_cross_attention.py:334",
-        "launches": launches + r50_launches + eval_fp32 + files_xattn + uoais_xattn,
+        "launches": (launches + r50_launches + eval_fp32 + files_xattn + uoais_xattn
+                     + std_launches),
         "launches_by_path": {"main": launches, "r50_main": r50_launches,
                              "eval_main": eval_fp32, "train_files_main": files_xattn,
-                             "uoais_main": uoais_xattn},
+                             "uoais_main": uoais_xattn, "train_standard_main": std_launches},
         "max_abs_err": max([x["max_abs_err"] for r in results.values() for x in r.values()]
                            + [r["max_abs_err"] for r in r50_results.values()]),
         "ms": s1r["ms"], "plain_ms": s1r["plain_ms"], "bound_ms": s1r["bound_ms"],
@@ -4346,7 +4605,7 @@ def main(argv=None):
                       "stream_main": stream_results, "stage1_no_sync": no_sync,
                       "seed_limits": seed_limits, "train": train_results,
                       "eval": eval_results, "files": files_results,
-                      "uoais": uoais_results}), flush=True)
+                      "uoais": uoais_results, "train_standard": std_train}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,18 @@
 """Where a train step of the PyTorch/CUDA port spends its time, on one NVIDIA GPU.
 
-    python scripts/profile_torch_train.py [--crop] [--bf16] [--batch 4] [--steps 4]
+    python scripts/profile_torch_train.py [--preset P] [--crop] [--bf16] [--batch 4]
+        [--steps 4]
 
-Builds the full-width trainer (tabletop_pretrained, or crop_tabletop_pretrained
-with --crop) with random weights from seed 0 and one batch from
-SyntheticDeviceLoader (B images at 480x640, or 224^2 SYN_CROP crops), then:
+Builds the full-width trainer of --preset (tabletop_pretrained by default;
+any preset the port trains, the standard-backbone ones included), or of its
+crop preset (pipeline.factory.crop_preset_for) with --crop, with random
+weights from seed 0 and one batch from SyntheticDeviceLoader (B images at
+480x640, or 224^2 SYN_CROP crops), then:
 
 1. The step's parts on the host clock, each ending in torch.cuda.synchronize
    (median of --steps after two warm-ups): rendering the batch, the
-   backbone's forward (SEGNET and pixel decoder), the decoder's unfused
+   backbone's forward (SEGNET and pixel decoder; for a standard backbone
+   the ResNet50 / Swin and the pixel decoder apart), the decoder's unfused
    forward, the criterion (of which the host LSAP), backward, the clip and
    optimizer update; and the whole train_step.
 2. The same whole step with train_remat_attention off: every attention runs
@@ -37,6 +41,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from unseenobjectswithmeanshift_torch.config import get_config
 from unseenobjectswithmeanshift_torch.data.synthetic_device import SyntheticDeviceLoader
 from unseenobjectswithmeanshift_torch.losses import matcher as matcher_module
+from unseenobjectswithmeanshift_torch.models.meta_arch import is_standard
+from unseenobjectswithmeanshift_torch.pipeline.factory import crop_preset_for
 from unseenobjectswithmeanshift_torch.train.trainer import (
     Trainer, clip_by_global_norm_, learning_rate, pair_bucket,
 )
@@ -71,11 +77,21 @@ def parts(tr, loader, batch):
         _, render = sync_ms(lambda: loader.batch_at(0))
         tr.optimizer.zero_grad(set_to_none=True)
         draws = tr.draws(batch)
-        (feats, mfeats), backbone = sync_ms(lambda: tr.model.features(batch["image"],
-                                                                       batch["xyz"]))
+        split = {}
+        if is_standard(tr.cfg):
+            res, split["backbone_forward"] = sync_ms(
+                lambda: tr.model.backbone_features(batch["image"]))
+            (mfeats, _, ms), split["pixel_decoder_forward"] = sync_ms(
+                lambda: tr.model.sem_seg_head.pixel_decoder(res))
+            feats, mfeats = [m.permute(0, 2, 3, 1) for m in ms], mfeats.permute(0, 2, 3, 1)
+            extra = {}
+        else:
+            (feats, mfeats), split["backbone_forward"] = sync_ms(
+                lambda: tr.model.features(batch["image"], batch["xyz"]))
+            extra = {"backbone_features": feats}
         outputs, decoder = sync_ms(lambda: tr.model.sem_seg_head.predictor.forward_unfused(
             feats, mfeats, remat=tr.cfg.train_remat_attention))
-        outputs.update(mask_features=mfeats, backbone_features=feats)
+        outputs.update(mask_features=mfeats, **extra)
         n = batch["gt_valid"].numel()
         (total, _), crit = sync_ms(lambda: tr.criterion(
             outputs, batch["gt_labels"], batch["gt_masks"], batch["gt_valid"], draws,
@@ -93,7 +109,7 @@ def parts(tr, loader, batch):
         _, optimizer = sync_ms(update)
     finally:
         matcher_module.solve_matches = lsap.inner
-    return {"render": render, "backbone_forward": backbone, "decoder_forward": decoder,
+    return {"render": render, **split, "decoder_forward": decoder,
             "criterion": crit, "host_lsap": lsap.ms,
             "backward": backward, "optimizer": optimizer}
 
@@ -127,6 +143,7 @@ def profile_step(tr, batch):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="Where a train step of the port spends its time.")
+    p.add_argument("--preset", default="tabletop_pretrained")
     p.add_argument("--crop", action="store_true")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--batch", type=int, default=4)
@@ -138,7 +155,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    cfg = get_config("crop_tabletop_pretrained" if args.crop else "tabletop_pretrained")
+    cfg = get_config(crop_preset_for(args.preset) if args.crop else args.preset)
     cfg.dtype = "bfloat16" if args.bf16 else "float32"
     loader = SyntheticDeviceLoader(args.batch, max_gt=cfg.loss.max_gt_instances, seed=0,
                                    syn_crop=args.crop)
@@ -146,7 +163,7 @@ def main(argv=None):
     tr = Trainer(cfg, device="cuda", seed=0)
     step_ms(tr, batch, 1)
     split = [parts(tr, loader, batch) for _ in range(args.steps)]
-    result = {"shape": list(batch["image"].shape), "dtype": cfg.dtype,
+    result = {"preset": cfg.name, "shape": list(batch["image"].shape), "dtype": cfg.dtype,
               "parts_ms": {k: statistics.median(s[k] for s in split) for k in split[0]},
               "step_ms": step_ms(tr, batch, args.steps)}
     cfg_nr = copy.deepcopy(cfg)

@@ -79,7 +79,52 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {f"unseenobjectswithmeanshift_torch.{m}" for m in (
         "utils.jpeg", "data.image_ops", "data.augmentation", "train.ucn",
         "cli.train_net")} <= expected
+    # and standard-backbone training's (test_standard_arch_trains_without_jax
+    # runs its step)
+    assert {f"unseenobjectswithmeanshift_torch.{m}" for m in (
+        "models.meta_arch", "models.compute", "weights", "pipeline.factory")} <= expected
     assert result["bad"] == []
+
+
+NO_JAX_STANDARD = """
+import json, sys
+import torch
+torch.set_num_threads(2)            # beside the other test workers
+from unseenobjectswithmeanshift_torch.config import get_config
+from unseenobjectswithmeanshift_torch.train.trainer import Trainer
+
+losses = {}
+for preset in ("uoais_resnet50", "tabletop_swin"):
+    cfg = get_config(preset)
+    d, p = cfg.decoder, cfg.pixel_decoder
+    d.num_queries, d.hidden_dim, d.dim_feedforward, d.dec_layers, d.nheads = 6, 48, 32, 3, 4
+    d.mask_dim, d.conv_dim, p.conv_dim, p.mask_dim, p.transformer_enc_layers = 32, 32, 32, 32, 1
+    cfg.loss.train_num_points = 64
+    tr = Trainer(cfg, device="cpu")
+    masks = torch.zeros(1, 2, 64, 64)
+    masks[0, 0, 4:30, 4:30] = masks[0, 1, 36:60, 10:50] = 1
+    batch = {"image": torch.rand(1, 64, 64, 3, generator=torch.Generator().manual_seed(0)) * 255,
+             "gt_labels": torch.ones(1, 2, dtype=torch.int32), "gt_masks": masks,
+             "gt_valid": torch.ones(1, 2, dtype=torch.bool)}
+    metrics = tr.train_step(batch)
+    losses[preset] = [float(metrics["total_loss"]), float(metrics["skipped_nonfinite"])]
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "unseenobjectswithmeanshift_tpu"))
+print(json.dumps({"losses": losses, "bad": bad}))
+"""
+
+
+def test_standard_arch_trains_without_jax():
+    """A train step of the narrow uoais_resnet50 and tabletop_swin through
+    ``Trainer`` in a process that never imports JAX."""
+    out = subprocess.run([sys.executable, "-c", NO_JAX_STANDARD], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    for preset, (total, skipped) in result["losses"].items():
+        assert total == total and total > 0 and skipped == 0.0, preset
 
 
 def test_port_and_chip_smoke_import_no_cv2_or_yaml():

@@ -6,7 +6,8 @@
   ``build_two_stage_predictor(checkpoint=...)``.
 - The CLI trains, writes checkpoint_<step>.pth and metrics.jsonl, and
   resumes from --output; what is not ported raises a ValueError naming its
-  ROADMAP item, and --dataset tabletop_object (ported: its runs are in
+  ROADMAP item; the embedding loss on the standard arch raises the JAX
+  package's error; and --dataset tabletop_object (ported: its runs are in
   tests/test_torch_train_net.py) asks for its --root (evaluation during
   training runs since the readers and the metric are ported:
   tests/test_torch_eval_cli.py).
@@ -76,6 +77,12 @@ def test_cli_refuses_what_is_not_ported(flags, item):
         train_msmformer.check_args(train_msmformer.parse_args(flags))
 
 
-def test_standard_backbone_training_is_refused():
-    with pytest.raises(ValueError, match="item 11"):
-        Trainer(get_config("tabletop_pretrained_resnet50"), device="cpu")
+@pytest.mark.parametrize("preset", ["tabletop_pretrained_resnet50", "tabletop_swin"])
+def test_standard_backbone_embedding_loss_is_refused(preset):
+    """The standard arch trains (tests/test_torch_train_standard.py) but has
+    no embedding head: the embedding loss raises the JAX train step's error
+    (JAX trainer.py:157-165), before a model is built."""
+    cfg = get_config(preset)
+    cfg.loss.use_embedding_loss = True
+    with pytest.raises(ValueError, match="the standard R50/Swin arch has no embedding head"):
+        Trainer(cfg, device="cpu")

@@ -11,6 +11,14 @@ pool. Module names are detectron2's checkpoint keys (``stem.conv1``,
 ``dtype`` is the compute dtype (``models/compute.py``): convolutions compute
 in it with fp32 weights cast at use; the frozen BatchNorm takes its input's
 dtype with fp32 statistics.
+
+In training the BatchNorm stays frozen: its four tensors are buffers (no
+gradient, no running-statistics update, no optimizer entry), and only the
+convolutions train, at lr x backbone_multiplier. That is detectron2's R50,
+the reference's, and the layout of the published checkpoints; the JAX
+module instead builds ``nn.BatchNorm(use_running_average=not train)``
+(JAX :28-30, :64-65) and so trains on batch statistics (ROADMAP.md
+section 3; tests/test_torch_train_standard.py pins the difference).
 """
 
 from __future__ import annotations

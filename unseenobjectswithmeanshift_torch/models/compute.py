@@ -14,7 +14,10 @@ the entry points set. BatchNorm takes the compute dtype in and out with
 its fp32 parameters (PyTorch normalizes in fp32 inside); ``LayerNorm``
 here normalizes in fp32 and casts its output back, as flax does.
 ``torch.autocast`` is not used: its per-op cast lists are not the JAX
-package's, and they hide where the rounding happens.
+package's, and they hide where the rounding happens. In training the casts
+are autograd ops: a bf16 step (either arch) computes the gradients in the
+compute dtype and hands each fp32 parameter an fp32 gradient, as the JAX
+package's fp32 parameters get theirs.
 """
 
 from __future__ import annotations

@@ -192,20 +192,38 @@ class StandardMaskFormer(nn.Module):
         x = ((image.float() - mean) / std).to(compute_dtype(self.cfg.dtype))
         return self.backbone(x.permute(0, 3, 1, 2))
 
-    def forward(self, image, xyz=None, light: bool = True):
+    def forward(self, image, xyz=None, light: bool = True, train: bool = False):
         """image: [B, H, W, 3], H and W padded to the size divisibility.
         light=True returns mask_embed [B, Q, Cm] and the stride-4
         mask_features [B, H/4, W/4, Cm] (instance_inference upsamples only
         the selected masks); light=False returns pred_masks [B, Q, H, W],
         upsampled to the input (bilinear, align_corners=False, JAX
-        :257-263)."""
+        :257-263).
+
+        train=True is the JAX package's train forward (meta_arch.py:146-261
+        with train=True): the decoder's unfused path (``forward_unfused``
+        over the three levels, every attention under
+        ``torch.utils.checkpoint`` when ``train_remat_attention``), and the
+        outputs add the stride-4 mask_features; there is no
+        backbone_features (no embedding head). The ResNet50's BatchNorm stays
+        frozen in either mode (``FrozenBatchNorm2d``: buffers, no gradient;
+        ROADMAP.md section 3 says where the JAX package differs)."""
         features = self.backbone_features(image)
         mask_features, _, multi_scale = self.sem_seg_head.pixel_decoder(features)
-        outputs = self.sem_seg_head.predictor(
-            [m.permute(0, 2, 3, 1) for m in multi_scale], mask_features.permute(0, 2, 3, 1),
-            materialize_masks=not light)
+        levels = [m.permute(0, 2, 3, 1) for m in multi_scale]
+        mask_features = mask_features.permute(0, 2, 3, 1)
+        predictor = self.sem_seg_head.predictor
+        if train:
+            if predictor.key_stride != 1:
+                raise ValueError("training runs at decoder.key_stride 1, as the JAX package "
+                                 "forces it (meta_arch.py:235)")
+            outputs = predictor.forward_unfused(levels, mask_features,
+                                                remat=self.cfg.train_remat_attention)
+            outputs["mask_features"] = mask_features
+            return outputs
+        outputs = predictor(levels, mask_features, materialize_masks=not light)
         if light:
-            outputs["mask_features"] = mask_features.permute(0, 2, 3, 1)
+            outputs["mask_features"] = mask_features
         elif tuple(outputs["pred_masks"].shape[-2:]) != tuple(image.shape[1:3]):
             outputs["pred_masks"] = resize_bilinear(outputs["pred_masks"][..., None],
                                                     image.shape[1:3])[..., 0]

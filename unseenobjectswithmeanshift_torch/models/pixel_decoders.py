@@ -25,6 +25,12 @@ their ``.norm``, ``mask_features``).
 GroupNorm eps is 1e-5, the reference's (torch's default), which published
 checkpoints were trained with; the JAX package leaves flax's 1e-6 there
 (ROADMAP.md section 3).
+
+The train forward is the eval forward (no dropout in either package). In a
+bf16 model the MSDeformAttn decoder still computes in fp32 under
+``pixel_decoder.fp32``, as the JAX module does (:136-146): its casts of
+the bf16 backbone features in and of its outputs back are autograd ops, so
+the gradient returns to the backbone in bf16.
 """
 
 from __future__ import annotations

@@ -22,6 +22,11 @@ the JAX order of the merged channels the two agree.
 Module names are the reference checkpoint's (``patch_embed.proj``,
 ``layers.{s}.blocks.{b}.attn.qkv``, ``layers.{s}.downsample.reduction``,
 ``norm{s}``, ...); ``relative_position_index`` is computed, not stored.
+
+The train forward is the eval forward: neither package has dropout or
+drop-path here (JAX :166 takes ``train`` and uses neither). Autograd
+carries the gradients through the relative-position-bias gather and the
+shifted-window mask (tests/test_torch_train_standard.py, at 224 x 224).
 """
 
 from __future__ import annotations

@@ -17,6 +17,18 @@ ROADMAP, not a TPU kernel).
 Dtypes: the projections compute in the module's ``dtype``; the softmax runs
 in fp32 and the weights are cast back; the sampling locations are fp32
 (the normalizer is fp32, as in the JAX module :202-205).
+
+Training differentiates it with autograd: ``grid_sample``'s backward gives
+the gradients with respect to the value maps, the sampling locations and
+(through the weighted sum) the attention weights, the same as the VJP of
+the JAX core's four gathers and lerp (tests/test_torch_train_standard.py).
+Two properties of that backward: on the card it adds into the value
+gradient with atomics, so two runs need not agree bit for bit
+(``chip_smoke.py`` ``train_standard_check`` prints whether they do); and
+at a location exactly on an integer tap, where bilinear sampling has no
+derivative, each implementation's rounding of ``loc * size - 0.5`` picks
+a one-sided one. The reference's init (zero offset kernels) puts every
+point of the first step there.
 """
 
 from __future__ import annotations

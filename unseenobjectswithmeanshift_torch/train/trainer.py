@@ -4,8 +4,10 @@ Port of ``unseenobjectswithmeanshift_tpu.train.trainer`` (:40-228; ref:
 MSMFormer/tabletop_train_net_pretrained.py):
 
 - AdamW, base lr 1e-4, weight decay 0.05; the backbone's parameters at
-  lr x backbone_multiplier (0.1); BatchNorm and LayerNorm parameters and the
-  query / level embeddings without weight decay (:46-53).
+  lr x backbone_multiplier (0.1); the norm layers' parameters (BatchNorm,
+  LayerNorm, GroupNorm) and the query / level embeddings without weight
+  decay: JAX's path rule ``_is_norm_or_embed`` (:44-53), whose norm layers
+  are the modules named ``*bn*`` / ``*norm*``, stated by module type.
 - Full-model gradient clipping at global norm 0.01 as optax writes it:
   g / |g| * c where |g| >= c (scale c / max(|g|, c)); torch's
   ``clip_grad_norm_`` divides by |g| + 1e-6, which is not the same at
@@ -26,8 +28,12 @@ matching costs, and the finite check. Every random draw of a step comes
 from a ``torch.Generator`` seeded by (seed, step), so a resumed run draws
 what the uninterrupted one would have.
 
-Data parallelism is not ported (ROADMAP queue 1 item 13); the standard-
-backbone (ResNet50 / Swin) training is not either (item 11).
+Both archs train: the UCN-backbone MSMFormer and the standard-backbone
+StandardMaskFormer (ResNet50 or Swin, the JAX ``Trainer``'s ``build_model``,
+:105-107). The ResNet50's BatchNorm is frozen (``FrozenBatchNorm2d``: no
+parameter, no running-statistics update), where the JAX package trains it
+on batch statistics (ROADMAP.md section 3). Data parallelism is not ported
+(ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -48,20 +54,30 @@ BACKBONE_PREFIXES = ("pretrained_backbone.", "backbone.")
 
 
 def check_trainable(cfg: Config):
-    """Raises ValueError for what the port does not train yet."""
+    """Raises ValueError for what the port does not train: a configuration
+    it does not build, or the embedding loss on the standard arch, which has
+    no embedding head (the JAX train step's error, trainer.py:157-165)."""
     check_supported(cfg)
-    if is_standard(cfg):
-        raise ValueError(f"preset {cfg.name!r}: training the standard-backbone arch (ResNet50 / "
-                         "Swin) is not ported (ROADMAP queue 1 item 11); the port trains the "
-                         "UCN-backbone MSMFormer")
+    if is_standard(cfg) and cfg.loss.use_embedding_loss:
+        raise ValueError(
+            "loss.use_embedding_loss needs the meta-arch to expose backbone_features in its "
+            "train outputs (the UCN-backbone MSMFormer does; the standard R50/Swin arch has no "
+            f"embedding head to train it on); preset {cfg.name!r}")
+
+
+NO_DECAY_MODULES = (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm, nn.Embedding)
 
 
 def no_decay_parameters(model: nn.Module):
     """ids of the parameters without weight decay: those of the norm layers
-    and the embedding tables (query_feat, query_embed, level_embed)."""
+    (BatchNorm, LayerNorm, GroupNorm), the query_feat / query_embed tables
+    and every ``level_embed`` (the decoder's table and the MSDeformAttn
+    pixel decoder's parameter). These are the leaves JAX's
+    ``_is_norm_or_embed`` picks by path (tests/test_torch_train_standard.py
+    holds the groups to its label trees)."""
     return {id(p) for m in model.modules()
-            if isinstance(m, (nn.BatchNorm2d, nn.LayerNorm, nn.Embedding))
-            for p in m.parameters(recurse=False)}
+            for name, p in m.named_parameters(recurse=False)
+            if isinstance(m, NO_DECAY_MODULES) or name == "level_embed"}
 
 
 def make_optimizer(model: nn.Module, cfg: Config) -> torch.optim.AdamW:

@@ -46,8 +46,11 @@ def save(path: str, trainer) -> str:
 
 def restore(path: str, trainer) -> int:
     """Load a checkpoint into ``trainer`` (model, optimizer, step); returns
-    the step."""
-    state = torch.load(path, map_location=trainer.device, weights_only=True)
+    the step. The file is read to host memory: ``load_state_dict`` copies
+    the weights and the AdamW moments to the parameters' device and leaves
+    AdamW's ``step`` counts on the host, where the optimizer keeps them (a
+    count on the card would cost a host sync a parameter a step)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
     trainer.load_state_dict(state)
     return trainer.step
 

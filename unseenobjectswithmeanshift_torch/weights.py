@@ -15,8 +15,8 @@ reads a reference ``.pth`` (the published UCN and MSMFormer checkpoints) into
 a state_dict of the port's modules, and ``fuse_tower_state`` fuses a
 two-tower state_dict into the grouped layout (``SEGNET.grouped_towers``).
 
-``to_jax_variables`` goes the other way for the UCN-backbone MSMFormer (a
-state_dict, or gradients by parameter name, to the JAX tree).
+``to_jax_variables`` goes the other way for both archs (a state_dict, or
+gradients by parameter name, to the JAX tree).
 
 Layouts: flax conv [kh, kw, in, out] -> torch [out, in, kh, kw];
 Dense [in, out] -> Linear [out, in]; the q/k/v kernels are packed into
@@ -374,12 +374,17 @@ def _conv_back(t):
 
 
 def to_jax_variables(state_dict) -> dict:
-    """The inverse of from_jax_variables for the UCN-backbone MSMFormer: a
-    state_dict of the port's model (reference key names) -> the JAX
-    package's {"params", "batch_stats"} numpy tree. Also takes a dict of
-    gradients under the parameters' names (no buffers): its tree then has
-    no batch_stats. The CPU tests read the port's updated parameters,
-    gradients and running statistics back in the JAX layout with it."""
+    """The inverse of from_jax_variables, for either arch: a state_dict of
+    the port's model (reference key names) -> the JAX package's
+    {"params", "batch_stats"} numpy tree. Also takes a dict of gradients
+    under the parameters' names (no buffers): its tree then has no
+    batch_stats (and, for the ResNet50, no BatchNorm leaf: the port's
+    BatchNorm is frozen). The ResNet50's frozen BatchNorm buffers become
+    scale and bias in params and mean and var in batch_stats; Swin's merged
+    channels go back to the JAX concatenation order; the MSDeformAttn pixel
+    decoder's level_embed rows are reversed back. The CPU tests read the
+    port's updated parameters, gradients and running statistics back in the
+    JAX layout with it."""
     params: dict = {}
     stats: dict = {}
 
@@ -388,9 +393,16 @@ def to_jax_variables(state_dict) -> dict:
             tree = tree.setdefault(name, {})
         tree[path[-1]] = value
 
+    pd_keys = [k[len(_PD):] for k in state_dict if k.startswith(_PD)]
     for key, t in state_dict.items():
         parts = key.split(".")
-        if parts[0] == "pretrained_backbone":
+        if parts[0] == "backbone":
+            _standard_backbone_back(parts[1:], t, lambda path, v: put(params, path, v),
+                                    lambda path, v: put(stats, path, v))
+        elif key.startswith(_PD) and not key.startswith(_PD + "mask_features."):
+            _pixel_decoder_back(key[len(_PD):].split("."), t, pd_keys,
+                                lambda path, v: put(params, ["pixel_decoder"] + path, v))
+        elif parts[0] == "pretrained_backbone":
             tower = parts[1]
             rest = parts[3:]                             # after <tower>.resnet34_8s
             if rest[0].startswith("layer"):
@@ -417,6 +429,123 @@ def to_jax_variables(state_dict) -> dict:
         elif key.startswith("sem_seg_head.predictor."):
             _predictor_back(parts[2:], t, lambda path, v: put(params, ["predictor"] + path, v))
     return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+_PD = "sem_seg_head.pixel_decoder."
+
+
+def _put_leaf(put, path, t, what, kind="dense"):
+    """A torch weight or bias of a conv (JAX kernel [kh, kw, in, out]), a
+    dense layer ([in, out]) or a norm (scale) under path."""
+    if what == "bias":
+        put(path + ["bias"], _np(t))
+    elif kind == "norm":
+        put(path + ["scale"], _np(t))
+    else:
+        put(path + ["kernel"], _conv_back(t) if kind == "conv" else _np(t).T)
+
+
+def _mha_back(put, path, t, sub, what):
+    """An ``in_proj_weight`` / ``in_proj_bias`` / ``out_proj.*`` leaf into
+    the JAX attention's q/k/v and out leaves under path (the inverse of
+    ``_mha``)."""
+    if sub == "out_proj":
+        put(path + ["out_kernel" if what == "weight" else "out_bias"],
+            _np(t).T if what == "weight" else _np(t))
+        return
+    for x, chunk in zip("qkv", t.chunk(3)):
+        if what == "in_proj_weight":
+            put(path + [f"{x}_kernel"], _np(chunk).T)
+        else:
+            put(path + [f"{x}_bias"], _np(chunk))
+
+
+def _standard_backbone_back(parts, t, put, put_stat):
+    """One ``backbone.*`` leaf (detectron2 ResNet50 or Swin) into the JAX
+    ``backbone`` tree."""
+    what, B = parts[-1], ["backbone"]
+    if parts[0] in ("stem", "res2", "res3", "res4", "res5"):     # ResNet50
+        if parts[0] == "stem":
+            mod, (conv, *rest) = [], parts[1:]
+            names = {"conv1": ("stem_conv1", "stem_bn1")}
+        else:
+            mod, (conv, *rest) = [f"{parts[0]}_{parts[1]}"], parts[2:]
+            names = {c: (c, f"bn{c[-1]}") for c in ("conv1", "conv2", "conv3")}
+            names["shortcut"] = ("downsample_conv", "downsample_bn")
+        conv_name, bn_name = names[conv]
+        if rest == ["weight"]:
+            put(B + mod + [conv_name, "kernel"], _conv_back(t))
+        elif what in ("running_mean", "running_var"):      # the frozen BatchNorm's buffers
+            put_stat(B + mod + [bn_name, "mean" if what == "running_mean" else "var"], _np(t))
+        else:
+            _put_leaf(put, B + mod + [bn_name], t, what, "norm")
+    elif parts[0] == "patch_embed":
+        if parts[1] == "proj":
+            _put_leaf(put, B + ["patch_embed"], t, what, "conv")
+        else:
+            _put_leaf(put, B + ["patch_norm"], t, what, "norm")
+    elif parts[0].startswith("norm"):
+        _put_leaf(put, B + [f"out_norm{parts[0][4:]}"], t, what, "norm")
+    elif parts[2] == "downsample":                            # layers.{s}.downsample
+        merge = B + [f"merge{parts[1]}"]
+        if parts[3] == "norm":
+            put(merge + ["norm", "scale" if what == "weight" else "bias"],
+                _np(t)[_merge_perm(t.shape[0])])
+        else:
+            put(merge + ["reduction", "kernel"], _np(t).T[_merge_perm(t.shape[1])])
+    else:                                                     # layers.{s}.blocks.{b}
+        block, sub = B + [f"stage{parts[1]}_block{parts[3]}"], parts[4]
+        if sub in ("norm1", "norm2"):
+            _put_leaf(put, block + [sub], t, what, "norm")
+        elif sub == "mlp":
+            _put_leaf(put, block + [f"mlp_{parts[5]}"], t, what)
+        elif parts[5] == "relative_position_bias_table":
+            put(block + ["attn", "relative_position_bias_table"], _np(t))
+        else:                                                 # attn.qkv / attn.proj
+            _put_leaf(put, block + ["attn", parts[5]], t, what)
+
+
+def _pixel_decoder_back(parts, t, pd_keys, put):
+    """One ``sem_seg_head.pixel_decoder.*`` leaf of a standard arch (the
+    MSDeformAttn, FPN or transformer-encoder decoder; ``mask_features``
+    aside, which every pixel decoder names alike) into the JAX
+    ``pixel_decoder`` tree: the inverse of ``_pixel_decoder``. pd_keys: every
+    key of the pixel decoder, which tell the decoders apart."""
+    what, head = parts[-1], parts[0]
+    if head == "input_proj" and len(parts) == 2:             # transformer-encoder decoder
+        _put_leaf(put, [head], t, what, "conv")
+    elif head == "input_proj":                                # input_proj.{i}.{0 conv, 1 GN}
+        if parts[2] == "0":
+            _put_leaf(put, [f"input_proj_{parts[1]}"], t, what, "conv")
+        else:
+            _put_leaf(put, [f"input_norm_{parts[1]}"], t, what, "norm")
+    elif head == "transformer" and parts[1] == "level_embed":
+        put(["level_embed"], _np(t)[::-1].copy())
+    elif head == "transformer":                               # encoder.layers.{i}.*
+        layer, sub = [f"encoder_layer_{parts[3]}"], parts[4]
+        if sub in ("norm1", "norm2"):
+            _put_leaf(put, layer + [sub], t, what, "norm")
+        elif sub in ("linear1", "linear2"):
+            _put_leaf(put, layer + [sub], t, what)
+        elif parts[5] in ("sampling_offsets", "attention_weights", "value_proj",
+                          "output_proj"):                     # MSDeformAttn
+            _put_leaf(put, layer + ["self_attn", parts[5]], t, what)
+        else:                                                 # softmax attention
+            _mha_back(put, layer + ["self_attn"], t, parts[5], what)
+    else:                                                     # adapter_{n} / layer_{n}
+        kind, n = head.split("_")
+        norm = parts[1] == "norm"
+        if any(k == "transformer.level_embed" for k in pd_keys):
+            # MSDeformAttn: the extra FPN level, numbered from 0
+            name = f"{kind}_norm_{int(n) - 1}" if norm else f"{kind}_{int(n) - 1}"
+        else:                                                 # FPN: index 0 = res5 = layer_{n}
+            n_fpn = len({k.split(".")[0] for k in pd_keys if k.startswith("layer_")})
+            base = {"layer": "output", "adapter": "lateral"}[kind]
+            name = f"{base}_{'norm' if norm else 'conv'}_{n_fpn - int(n)}"
+        if norm:
+            _put_leaf(put, [name], t, what, "norm")
+        else:
+            put([name, "kernel"], _conv_back(t))
 
 
 def _predictor_back(parts, t, put):
@@ -447,15 +576,8 @@ def _predictor_back(parts, t, put):
         i, sub = parts[1], parts[2]
         if sub == "norm":
             put([f"{kind}_norm_{i}", "scale" if what == "weight" else "bias"], _np(t))
-        elif parts[3] == "out_proj":
-            put([f"{kind}_attn_{i}", "out_kernel" if what == "weight" else "out_bias"],
-                _np(t).T if what == "weight" else _np(t))
         else:
-            for x, chunk in zip("qkv", t.chunk(3)):
-                if what == "in_proj_weight":
-                    put([f"{kind}_attn_{i}", f"{x}_kernel"], _np(chunk).T)
-                else:
-                    put([f"{kind}_attn_{i}", f"{x}_bias"], _np(chunk))
+            _mha_back(put, [f"{kind}_attn_{i}"], t, parts[3], what)
 
 
 @torch.no_grad()
